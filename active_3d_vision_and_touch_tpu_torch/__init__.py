@@ -6,11 +6,14 @@ stays beside it as the reference the tests hold it against.  Layers
 follow the JAX package's:
 
 - ``core``   host geometry: chart meshes, adjacency build/fuse, camera, config
-- ``ops``    Chamfer on the hand-written exact-NN and segment-sum CUDA kernels
-             (``csrc/``), area-weighted sampling, NeRF encoding, bilinear pooling
-- ``models`` the vision ``Deformation`` network (CNN pyramids + GCN stages)
-- ``train``  the vision trainer (``VisionEngine``), checkpoints, early stop
-- ``convert`` flax variables → the port's ``state_dict``
+- ``ops``    Chamfer on the hand-written exact-NN, clustered-NN and
+             segment-sum CUDA kernels (``csrc/``), area-weighted sampling,
+             NeRF encoding, bilinear pooling
+- ``models`` the vision ``Deformation`` network (CNN pyramids + GCN stages,
+             touch-context and plane pathways) and the ``TouchChartEncoder``
+- ``train``  the vision and touch trainers (``VisionEngine``,
+             ``TouchEngine``), checkpoints, early stop
+- ``convert`` flax variables → the port's ``state_dict``s
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU.  Kernels are built with ``nvcc`` at their first use.

@@ -1,9 +1,10 @@
-"""Carry a flax ``Deformation``'s variables over to the port's module.
+"""Carry the flax models' variables over to the port's modules.
 
-:func:`deformation_from_flax` takes the flax ``params`` and ``batch_stats``
-trees as nested dicts of numpy arrays (``jax.device_get`` of the JAX
-package's state), so this module never sees JAX, and returns a
-``state_dict`` for :class:`models.vision.Deformation`.
+:func:`deformation_from_flax` and :func:`touch_encoder_from_flax` take the
+flax ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays
+(``jax.device_get`` of the JAX package's state), so this module never sees
+JAX, and return a ``state_dict`` for :class:`models.vision.Deformation` and
+:class:`models.touch.TouchChartEncoder`.
 
 Layouts: a Dense kernel (in, out) becomes ``Linear.weight`` (out, in); a
 Conv kernel HWIO becomes OIHW; ``GCNLayer.weight`` stays (in, out); an Embed
@@ -29,6 +30,10 @@ _TOP = {
     "ImageEncoder_0": "global_encoder",
     "ImageEncoder_1": "local_encoder",
 }
+# Dense layers that flax names explicitly; the port's attributes carry the
+# same names
+_HEADS = ("touch_context", "plane_context", "plane_vertex")
+_NORM_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -48,46 +53,75 @@ def _index(name: str, kind: str) -> int:
     return int(m.group(1))
 
 
-def _map_param(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
-    """(flax path, array) → (state_dict key, array in the torch layout)."""
+def _layer(base: str, name: str, leaf: str, value: np.ndarray, kinds: dict):
+    """A leaf of a flax ``Dense_k``/``Conv_k``/``BatchNorm_k`` →
+    (key, array in the torch layout) under the prefix ``base``; ``kinds`` maps each
+    flax layer kind the parent holds onto the port's list attribute.
+    Returns None for a name it does not know."""
+    kind = name.split("_")[0]
+    if kind not in kinds:
+        return None
+    key = f"{base}{kinds[kind]}.{_index(name, kind)}"
+    if kind == "BatchNorm" and leaf in _NORM_LEAVES:
+        return f"{key}.{_NORM_LEAVES[leaf]}", value
+    if kind == "Dense" and leaf == "kernel":
+        return f"{key}.weight", value.T
+    if kind == "Conv" and leaf == "kernel":
+        return f"{key}.weight", value.transpose(3, 2, 0, 1)
+    if kind in ("Dense", "Conv") and leaf == "bias":
+        return f"{key}.bias", value
+    return None
+
+
+def _map_deformation(path: tuple, value: np.ndarray):
     top, *rest = path
+    if top in _HEADS and rest in (["kernel"], ["bias"]):
+        return (f"{top}.weight", value.T) if rest[0] == "kernel" else (f"{top}.bias", value)
     if top not in _TOP:
         raise KeyError(f"unknown flax module {top!r} in {'/'.join(path)}")
-    base = _TOP[top]
+    base = _TOP[top] + "."
     if top.startswith("PositionalEncoder") and len(rest) == 2:
-        k = _index(rest[0], "Dense")
-        if rest[1] == "kernel":
-            return f"{base}.layers.{k}.weight", value.T
-        if rest[1] == "bias":
-            return f"{base}.layers.{k}.bias", value
-    elif top.startswith("MaskEncoder") and rest == ["Embed_0", "embedding"]:
-        return f"{base}.embed.weight", value
-    elif top.startswith("GCN") and len(rest) == 2 and rest[1] in ("weight", "bias"):
-        return f"{base}.layers.{_index(rest[0], 'GCNLayer')}.{rest[1]}", value
-    elif top.startswith("ImageEncoder") and len(rest) == 2:
-        if rest[0].startswith("Conv"):
-            k = _index(rest[0], "Conv")
-            if rest[1] == "kernel":
-                return f"{base}.convs.{k}.weight", value.transpose(3, 2, 0, 1)
-            if rest[1] == "bias":
-                return f"{base}.convs.{k}.bias", value
-        else:
-            j = _index(rest[0], "BatchNorm")
-            names = {"scale": "weight", "bias": "bias",
-                     "mean": "running_mean", "var": "running_var"}
-            if rest[1] in names:
-                return f"{base}.norms.{j}.{names[rest[1]]}", value
-    raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
+        return _layer(base, *rest, value, {"Dense": "layers"})
+    if top.startswith("MaskEncoder") and rest == ["Embed_0", "embedding"]:
+        return f"{base}embed.weight", value
+    if top.startswith("GCN") and len(rest) == 2 and rest[1] in ("weight", "bias"):
+        return f"{base}layers.{_index(rest[0], 'GCNLayer')}.{rest[1]}", value
+    if top.startswith("ImageEncoder") and len(rest) == 2:
+        return _layer(base, *rest, value, {"Conv": "convs", "BatchNorm": "norms"})
+    return None
 
 
-def deformation_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
-    """flax ``Deformation`` params (+ batch_stats) → torch ``state_dict``."""
+def _map_touch_encoder(path: tuple, value: np.ndarray):
+    if len(path) == 2:
+        return _layer("", *path, value, {"Dense": "dense"})
+    if len(path) == 3:
+        base = f"blocks.{_index(path[0], 'DoubleConv')}."
+        return _layer(base, *path[1:], value, {"Conv": "convs", "BatchNorm": "norms"})
+    return None
+
+
+def _convert(params: dict, batch_stats: dict | None, map_leaf) -> dict:
     leaves = _flatten(params)
     leaves.update(_flatten(batch_stats or {}))
     state = {}
     for path, value in leaves.items():
-        key, arr = _map_param(path, value)
+        mapped = map_leaf(path, value)
+        if mapped is None:
+            raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
+        key, arr = mapped
         if key in state:
             raise KeyError(f"two flax leaves map onto {key}")
         state[key] = torch.tensor(arr, dtype=torch.float32)
     return state
+
+
+def deformation_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
+    """flax ``Deformation`` params (+ batch_stats) → torch ``state_dict``."""
+    return _convert(params, batch_stats, _map_deformation)
+
+
+def touch_encoder_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
+    """flax ``TouchChartEncoder`` params (+ batch_stats) → torch
+    ``state_dict``.  The first Dense layer's rows need no permutation: the
+    port flattens its last feature map in flax's (h, w, c) order."""
+    return _convert(params, batch_stats, _map_touch_encoder)

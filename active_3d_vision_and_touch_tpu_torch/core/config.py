@@ -55,9 +55,9 @@ class BaseConfig:
     eval: bool = False
     pretrained: bool = False
     visualize: bool = False
-    # NN search for training losses: "clustered" (Morton-pruned kernel, not
-    # yet ported), "exact" (brute-force kernel) or "xla" (the chunked plain
-    # brute force, benchmark baseline)
+    # NN search for training losses: "clustered" (Morton-pruned kernel),
+    # "exact" (brute-force kernel; scoring always uses this) or "xla" (the
+    # chunked plain brute force, benchmark baseline)
     loss_nn: str = "clustered"
     experiments_root: str = "experiments"
 
@@ -77,6 +77,18 @@ class BaseConfig:
 
 
 @dataclass
+class TouchConfig(BaseConfig):
+    """Touch-chart trainer defaults (reference ``touch/train.py:203-255``)."""
+
+    lr: float = 1e-4
+    batch_size: int = 64
+    num_samples: int = 4000  # CD sample count
+    # touch charts are tiny (25-vertex sheets, 4k-point clouds): the exact
+    # scan is the JAX package's choice at this size
+    loss_nn: str = "exact"
+
+
+@dataclass
 class VisionConfig(BaseConfig):
     """Vision deformation trainer defaults (``vision/train.py:287-405``)."""
 
@@ -90,8 +102,8 @@ class VisionConfig(BaseConfig):
     num_gcn_layers: int = 20
     hidden_gcn_size: int = 300
     cut: float = 0.33
-    # global touch-context and per-contact plane pathways of the JAX model;
-    # off by default and not yet ported (Deformation raises if set)
+    # global touch-context and per-contact plane pathways of the model
+    # (models/vision.py::Deformation); off by default
     touch_global: bool = False
     touch_plane: bool = False
     num_cnn_blocks: int = 6

@@ -4,11 +4,16 @@ from active_3d_vision_and_touch_tpu_torch.models.gcn import (  # noqa: F401
     MaskEncoder,
     PositionalEncoder,
 )
+from active_3d_vision_and_touch_tpu_torch.models.touch import (  # noqa: F401
+    DoubleConv,
+    TouchChartEncoder,
+)
 from active_3d_vision_and_touch_tpu_torch.models.vision import (  # noqa: F401
     Deformation,
+    chart_plane_features,
     ImageEncoder,
     encoder_plan,
-    init_deformation_,
+    init_modules_,
     pool_image_features,
     prepare_charts,
 )

@@ -149,13 +149,64 @@ def pool_image_features(
     return torch.cat([sample_nchw(fmap, grid) for fmap in feature_maps], dim=-1)
 
 
+def chart_plane_features(
+    t_pos: torch.Tensor, contact: torch.Tensor, n: int = 5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-chart plane features from the n x n touch-chart grids.
+
+    A contact chart pins the local surface plane.  The chart is a deformed
+    row-major (n x n) sheet (``core/mesh.py::touch_chart``), so the grid
+    tangents give a closed-form normal without an eigendecomposition.
+
+    t_pos (B, V, 3) chart vertices, contact (B, V, 1) in {0, 1} →
+    ``(feats, has)``: feats (B, C, 8) = [n n^T upper triangle (6) |
+    planarity | residual rms] per chart (n n^T is sign-invariant, so the
+    arbitrary orientation of the sheet's tangents cannot flip it) and has
+    (B, C, 1), the per-chart contact indicator.  Non-contact charts are
+    zeroed.
+    """
+    b, v, _ = t_pos.shape
+    c = v // (n * n)
+    tc = t_pos.reshape(b, c, n, n, 3)
+    # a chart counts as contact if ANY of its slots does
+    has = contact.reshape(b, c, n * n, 1).amax(dim=2)
+    tu = (tc[:, :, 1:] - tc[:, :, :-1]).mean(dim=(2, 3))
+    tv = (tc[:, :, :, 1:] - tc[:, :, :, :-1]).mean(dim=(2, 3))
+    # double-where guard: padded and degenerate charts have a zero cross
+    # product, and the norm's gradient at zero is NaN, which a clamp on the
+    # norm alone does not stop (0 * NaN = NaN through the unselected
+    # branch).  A safe unit vector goes in INSIDE the norm instead.
+    cross = torch.linalg.cross(tu, tv, dim=-1)
+    degen = cross.square().sum(dim=-1, keepdim=True) < 1e-24
+    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=t_pos.dtype, device=t_pos.device)
+    safe = torch.where(degen, e3.expand_as(cross), cross)
+    nrm = safe / torch.linalg.vector_norm(safe, dim=-1, keepdim=True)
+    flat = tc.reshape(b, c, n * n, 3)
+    d = flat - flat.mean(dim=2, keepdim=True)
+    var_n = (d * nrm[:, :, None, :]).sum(-1).square().mean(-1)  # (B, C)
+    tot = d.square().sum(-1).mean(-1)
+    planarity = 1.0 - var_n / torch.clamp(tot, min=1e-12)
+    rms = torch.sqrt(var_n + 1e-12)
+    iu, ju = torch.triu_indices(3, 3, device=t_pos.device)
+    nnt = (nrm[..., :, None] * nrm[..., None, :])[..., iu, ju]  # (B, C, 6)
+    feats = torch.cat([nnt, planarity[..., None], rms[..., None]], dim=-1)
+    return feats * has, has
+
+
 class Deformation(nn.Module):
     """Three-stage GCN chart deformation.
 
-    Submodules map onto the flax auto-names: ``positional`` =
+    ``touch_global`` pools the contact charts' positional features and raw
+    coordinate statistics into one context vector per object, broadcast to
+    every vertex at every stage; ``touch_plane`` adds each contact chart's
+    fitted plane, pooled into that context and per vertex at the touch
+    tail.  Both are off by default, as in the JAX package.
+
+    Submodules map onto the flax names: ``positional`` =
     PositionalEncoder_0, ``mask_enc`` = MaskEncoder_0, ``gcn_1``/``gcn_2`` =
     GCN_0/GCN_1, ``global_encoder``/``local_encoder`` =
-    ImageEncoder_0/ImageEncoder_1 (see :mod:`convert`).
+    ImageEncoder_0/ImageEncoder_1, and ``touch_context``, ``plane_context``,
+    ``plane_vertex`` the Dense layers of those names (see :mod:`convert`).
     """
 
     def __init__(
@@ -173,13 +224,10 @@ class Deformation(nn.Module):
         camera: PinholeCamera = PinholeCamera(),
     ):
         super().__init__()
-        if touch_global or touch_plane:
-            raise NotImplementedError(
-                "touch_global/touch_plane pathways are not ported yet "
-                "(ROADMAP, 'Modules to port')"
-            )
         self.use_img = use_img
         self.use_touch = use_touch
+        self.touch_global = use_touch and touch_global
+        self.touch_plane = use_touch and touch_plane
         self.camera = camera
         if use_img:
             _, _, channels = encoder_plan(num_cnn_blocks, layers_per_block, cnn_kernel)
@@ -195,6 +243,51 @@ class Deformation(nn.Module):
             enc = (num_cnn_blocks, layers_per_block, cnn_kernel)
             self.global_encoder = ImageEncoder(*enc)
             self.local_encoder = ImageEncoder(*enc)
+        if self.touch_global:
+            # mean and max of the positional features, 4 x 3 coordinate
+            # statistics, the contact fraction
+            self.touch_context = nn.Linear(2 * fsize + 12 + 1, fsize)
+        if self.touch_plane:
+            self.plane_context = nn.Linear(2 * 8, fsize)
+            self.plane_vertex = nn.Linear(8, fsize)
+
+    def _touch_context(self, t_pos: torch.Tensor, contact: torch.Tensor) -> torch.Tensor:
+        """(B, 1, fsize) global context of the contact set; finite (and with
+        finite gradients) when no slot is in contact."""
+        t_feat = self.positional(t_pos)  # shared with the vertex encoding
+        count = contact.sum(dim=1)  # (B, 1)
+        n_contact = torch.clamp(count, min=1.0)
+        has = count > 0
+        on = contact > 0
+        zero = t_pos.new_zeros(())
+        ctx_mean = (t_feat * contact).sum(dim=1) / n_contact
+        ctx_max = torch.where(has, t_feat.masked_fill(~on, -1e9).amax(dim=1), zero)
+        # raw per-axis statistics of the contact set: contacts lower-bound
+        # the object's extent along their directions
+        p_mean = (t_pos * contact).sum(dim=1) / n_contact
+        p_max = torch.where(has, t_pos.masked_fill(~on, -1e9).amax(dim=1), zero)
+        p_min = torch.where(has, t_pos.masked_fill(~on, 1e9).amin(dim=1), zero)
+        p_var = ((t_pos - p_mean[:, None, :]).square() * contact).sum(dim=1) / n_contact
+        frac = contact.mean(dim=1)  # share of slots in contact
+        stats = torch.where(
+            has, torch.cat([p_mean, p_max, p_min, torch.sqrt(p_var + 1e-8)], dim=-1), zero
+        )
+        ctx = torch.cat([ctx_mean, ctx_max, 3.0 * stats, frac], dim=-1)
+        return self.touch_context(ctx)[:, None, :]
+
+    def _plane_context(self, t_pos: torch.Tensor, contact: torch.Tensor):
+        """((B, 1, fsize) pooled plane context, (B, Vt, fsize) per-vertex
+        plane features of the touch tail)."""
+        pf, phas = chart_plane_features(t_pos, contact)
+        count = phas.sum(dim=1)  # (B, 1)
+        pf_mean = pf.sum(dim=1) / torch.clamp(count, min=1.0)
+        pf_max = torch.where(
+            count > 0, pf.masked_fill(~(phas > 0), -1e9).amax(dim=1), pf.new_zeros(())
+        )
+        ctx = self.plane_context(torch.cat([pf_mean, pf_max], dim=-1))[:, None, :]
+        verts_per_chart = t_pos.shape[1] // pf.shape[1]
+        tail = self.plane_vertex(pf.repeat_interleave(verts_per_chart, dim=1))
+        return ctx, tail
 
     def forward(
         self,
@@ -205,6 +298,25 @@ class Deformation(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (verts (B, V, 3), mask (B, V, 1)); ``img`` is NHWC."""
         vc = charts["vision_charts"].shape[1]
+        touch_ctx, plane_tail = None, None
+        if self.touch_global or self.touch_plane:
+            t_pos = charts["touch_charts"]
+            contact = (charts["touch_masks"] == 2.0).to(t_pos.dtype)
+            if self.touch_global:
+                touch_ctx = self._touch_context(t_pos, contact)
+            if self.touch_plane:
+                plane_ctx, plane_tail = self._plane_context(t_pos, contact)
+                touch_ctx = plane_ctx if touch_ctx is None else touch_ctx + plane_ctx
+
+        def embed(vertices: torch.Tensor, mask_features: torch.Tensor) -> torch.Tensor:
+            features = self.positional(vertices) + mask_features
+            # per-vertex plane features at the touch tail [vc:], where present
+            if plane_tail is not None and features.shape[1] != vc:
+                features = torch.cat(
+                    [features[:, :vc], features[:, vc:] + plane_tail], dim=1
+                )
+            return features if touch_ctx is None else features + touch_ctx
+
         if self.use_img:
             x = img.permute(0, 3, 1, 2)  # NHWC → NCHW (a channels-last view)
             global_feats = self.global_encoder(x)
@@ -214,12 +326,12 @@ class Deformation(nn.Module):
         if self.use_touch and not self.use_img:
             vertices = torch.cat([charts["vision_charts"], charts["touch_charts"]], dim=1)
             mask = torch.cat([charts["vision_masks"], charts["touch_masks"]], dim=1)
-            features = self.positional(vertices) + self.mask_enc(mask)
+            features = embed(vertices, self.mask_enc(mask))
             stage1_adj = adj
         else:
             vertices = charts["vision_charts"]
             mask = charts["vision_masks"]
-            features = self.positional(vertices) + self.mask_enc(mask)
+            features = embed(vertices, self.mask_enc(mask))
             if self.use_img:
                 features = features + pool_image_features(global_feats, vertices, self.camera)
             # with image features, stage 1 deforms the vision atlas alone
@@ -233,7 +345,7 @@ class Deformation(nn.Module):
             mask = torch.cat([charts["vision_masks"], charts["touch_masks"]], dim=1)
         mask_features = self.mask_enc(mask)
         for _ in range(2):  # stages 2 and 3 share gcn_2, features refreshed
-            features = self.positional(vertices) + mask_features
+            features = embed(vertices, mask_features)
             if self.use_img:
                 features = features + pool_image_features(local_feats, vertices, self.camera)
             update = self.gcn_2(features, adj)
@@ -247,8 +359,9 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
-def init_deformation_(model: Deformation, generator: torch.Generator) -> Deformation:
-    """Initialize every parameter from ``generator`` with the JAX package's
+def init_modules_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialize every parameter of a model of this package (``Deformation``,
+    ``TouchChartEncoder``) from ``generator`` with the JAX package's
     initializers: lecun-normal kernels and zero biases for Conv/Dense, the
     reference's uniform GCN init, N(0, 1/4)-truncated mask embeddings, unit
     BatchNorm scales."""

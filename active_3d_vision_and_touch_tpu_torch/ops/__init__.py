@@ -4,6 +4,13 @@ from active_3d_vision_and_touch_tpu_torch.ops.chamfer import (  # noqa: F401
     mesh_chamfer_distance,
     min_dists,
 )
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import (  # noqa: F401
+    NN_CLUSTER,
+    chamfer_clustered_tiled_gt,
+    chamfer_distance_clustered,
+    min_dists_clustered,
+    nn_cluster,
+)
 from active_3d_vision_and_touch_tpu_torch.ops.encoding import nerf_embedding  # noqa: F401
 from active_3d_vision_and_touch_tpu_torch.ops.grid_sample import (  # noqa: F401
     bilinear_sample,
@@ -18,6 +25,5 @@ from active_3d_vision_and_touch_tpu_torch.ops.segsum import (  # noqa: F401
     segment_accumulate_sorted,
 )
 
-# every hand-written kernel of the package, in the order the main path
-# first launches them
-KERNELS = (NN_EXACT, SEGSUM)
+# every hand-written kernel of the package, in the order they were ported
+KERNELS = (NN_EXACT, SEGSUM, NN_CLUSTER)

@@ -24,6 +24,9 @@ from active_3d_vision_and_touch_tpu_torch.ops._cuda import (
     check_cuda_tensor,
     current_stream,
 )
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import (
+    chamfer_clustered_tiled_gt,
+)
 from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
     scatter_add_3,
@@ -142,18 +145,20 @@ def mesh_chamfer_distance(
     sorted draw of ``repeat * num`` points per mesh, split along the point
     axis into ``repeat`` slices that are concatenated on the batch axis,
     against ``repeat`` tiled copies of the gt cloud.  ``nn="exact"`` runs
-    the kernels, ``nn="xla"`` the plain brute force (the benchmark
-    baseline).  ``draws`` hands in the sampler's random numbers
+    the exact kernels, ``nn="clustered"`` the Morton-pruned search of
+    :mod:`ops.chamfer_cluster` (the training-loss accelerator, which sorts
+    the distinct gt clouds once and tiles the sorted frame itself),
+    ``nn="xla"`` the plain brute force (the benchmark baseline).  ``draws``
+    hands in the sampler's random numbers
     (:func:`ops.sample.draw_sample_noise`) in place of ``generator``.
     """
-    if nn not in ("exact", "xla"):
-        raise NotImplementedError(
-            f"nn={nn!r}: the clustered NN is not ported yet (ROADMAP, "
-            "'TPU kernels to port', K3); use 'exact'"
-        )
+    if nn not in ("exact", "clustered", "xla"):
+        raise ValueError(f"nn={nn!r}: expected 'exact', 'clustered' or 'xla'")
     b = verts.shape[0]
     pts = batch_sample(verts, faces, num * repeat, generator=generator, draws=draws)
     preds = torch.cat(torch.split(pts, num, dim=1), dim=0)  # (R*B, num, 3)
-    gt_t = gt_points.repeat(repeat, 1, 1)
-    cd = chamfer_distance(preds, gt_t, plain=nn == "xla")
+    if nn == "clustered":
+        cd = chamfer_clustered_tiled_gt(preds, gt_points, repeat)
+    else:
+        cd = chamfer_distance(preds, gt_points.repeat(repeat, 1, 1), plain=nn == "xla")
     return cd.reshape(repeat, b).mean(dim=0)

@@ -34,8 +34,7 @@ def resolve_device(device) -> torch.device:
 
 class ReconEngine:
     """Subclasses set ``self.model`` and ``self.optimizer`` before calling
-    ``super().__init__`` and define ``train_step``/``eval_step`` plus
-    ``loss_tag``."""
+    ``super().__init__`` and define ``_loss`` plus ``loss_tag``."""
 
     loss_tag = "loss"
 
@@ -52,14 +51,26 @@ class ReconEngine:
             save_config(config.checkpoint_dir, config)
         self.built = False
 
-    # -- to be provided by subclasses -------------------------------------
-    def train_step(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
+    def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
+        """The scalar training loss of ``batch`` (provided by subclasses)."""
         raise NotImplementedError
 
-    def eval_step(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
-        raise NotImplementedError
+    def train_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
+        """One optimizer step on ``batch``; returns the loss (on the device).
+        ``draws`` (see :func:`ops.sample.draw_sample_noise`) replaces the
+        sampler's draw from ``generator``."""
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self._loss(batch, generator, draws)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
 
-    # ----------------------------------------------------------------------
+    def eval_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
+        self.model.eval()
+        with torch.no_grad():
+            return self._loss(batch, generator, draws)
+
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of step ``step``: a seed derived from (seed, step)."""
         seed = int(np.random.SeedSequence([self.config.seed, step]).generate_state(1)[0])

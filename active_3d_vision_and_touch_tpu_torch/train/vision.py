@@ -15,7 +15,7 @@ from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, vision_cha
 from active_3d_vision_and_touch_tpu_torch.core.config import VisionConfig
 from active_3d_vision_and_touch_tpu_torch.models.vision import (
     Deformation,
-    init_deformation_,
+    init_modules_,
     prepare_charts,
 )
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
@@ -46,7 +46,7 @@ def build_deformation(config: VisionConfig, device="cuda"):
         layers_per_block=config.layers_per_block,
         cnn_kernel=config.cnn_kernel,
     )
-    init_deformation_(model, torch.Generator().manual_seed(config.seed))
+    init_modules_(model, torch.Generator().manual_seed(config.seed))
     return (
         model.to(device),
         adj_info.to(device),
@@ -59,11 +59,6 @@ class VisionEngine(ReconEngine):
 
     def __init__(self, config: VisionConfig | None = None, device="cuda", log: bool = True):
         config = config or VisionConfig()
-        if config.loss_nn not in ("exact", "xla"):
-            raise NotImplementedError(
-                f"loss_nn={config.loss_nn!r}: the clustered NN is not ported yet "
-                "(ROADMAP, 'TPU kernels to port', K3); use loss_nn='exact'"
-            )
         self.model, self.adj_info, self.initial_mesh = build_deformation(config, device)
         self.adj = self.adj_info.adj
         self.original_adj = self.adj_info.original
@@ -87,19 +82,3 @@ class VisionEngine(ReconEngine):
             draws=draws,
         )
         return self.config.loss_coeff * cd.mean()
-
-    def train_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
-        """One Adam step on ``batch``; returns the loss (on the device).
-        ``draws`` (see :func:`ops.sample.draw_sample_noise`) replaces the
-        sampler's draw from ``generator``."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(batch, generator, draws)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
-
-    def eval_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
-        self.model.eval()
-        with torch.no_grad():
-            return self._loss(batch, generator, draws)

@@ -12,18 +12,23 @@ package, and runs these phases in order; any failure exits non-zero:
    started together;
 3. kernels against their plain PyTorch versions on the card, at test shapes
    and at the shapes the train step gives them, each with its stated
-   tolerance; then CUDA-event timings (median of repeated launches) of each
-   kernel, its plain version and, where one exists, a single PyTorch call
-   computing the same function;
-4. the main path at full width: ``VisionEngine`` on the v_t_g configuration
-   (batch 16, 30k points, 3-repeat Chamfer, ``loss_nn="exact"``, random
-   weights from the seed) takes 1 warm-up and 3 train steps and 1 eval
-   step; every launch counter starts at 0 just before and is read just
-   after, and each kernel must have run exactly as often as the path needs;
+   tolerance; the clustered search against the exact one, its oracle; then
+   CUDA-event timings (median of repeated launches) of each kernel, its
+   plain version and, where one exists, a single PyTorch call computing the
+   same function, and of the clustered search's torch-op prep;
+4. the main paths at full width, each taking 1 warm-up and 3 train steps
+   and 1 eval step from random weights made from the seed, with every
+   launch counter set to 0 just before and read just after, and each kernel
+   required to have run exactly as often as the path needs:
+   ``VisionEngine`` on the v_t_g configuration (batch 16, 30k points,
+   3-repeat Chamfer) with ``loss_nn="exact"``, the same with ``loss_nn``
+   left at its default ``"clustered"``, and ``TouchEngine`` on its default
+   configuration (batch 64, 121x121 images, 4000 samples);
 5. the outputs: the full-width losses with the kernels against the same
-   step on the plain versions, and a small configuration on the card
-   against the same one on the CPU;
-6. a profile of one train step: device time by kernel;
+   step on the plain versions, the clustered Chamfer on the kernels against
+   the same on the plain versions and against the exact loss, and small
+   configurations on the card against the same ones on the CPU;
+6. a profile of one train step of each path: device time by kernel;
 7. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -39,16 +44,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, vision_charts
-from active_3d_vision_and_touch_tpu_torch.core.config import VisionConfig
-from active_3d_vision_and_touch_tpu_torch.ops import KERNELS, NN_EXACT, SEGSUM
+from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, touch_chart, vision_charts
+from active_3d_vision_and_touch_tpu_torch.core.config import TouchConfig, VisionConfig
+from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
+from active_3d_vision_and_touch_tpu_torch.ops import KERNELS, NN_CLUSTER, NN_EXACT, SEGSUM
+from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import min_dists, min_dists_plain
 from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample, draw_sample_noise
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
+    scatter_add_3,
     segment_accumulate_sorted,
     segment_sum_plain,
 )
+from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
 
 ROOT = Path(__file__).resolve().parent
@@ -61,6 +70,13 @@ MAIN = dict(
     number_points=30000, loss_nn="exact", eval=True,
 )
 REPEAT = 3  # Chamfer repeats folded onto the batch: 48 clouds per launch
+CHUNK, CHUNKS_PER_TILE = 128, 24  # the clustered search's defaults
+# Least share of queries whose clustered neighbour is the exact one, on the
+# surface clouds of this script at 30k points, in either direction.  An
+# H100 showed 0.9765 (predictions -> gt) and 0.9273 (gt -> predictions); the
+# clouds are made from a seed, so a fall below 0.90 is a change in the code
+MIN_AGREEMENT = 0.90
+EXPERIMENTS = str(ROOT / "build" / "chip_smoke")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -100,6 +116,41 @@ def main_batch(cfg: VisionConfig, seed: int = 0) -> dict:
         "img": rng.uniform(size=(b, 256, 256, 3)).astype(np.float32),
         "gt_points": rng.normal(size=(b, cfg.number_points, 3)).astype(np.float32) * 0.1,
         "touch_charts": rng.normal(size=(b, cfg.num_grasps, 4, 25, 4)).astype(np.float32) * 0.1,
+    }
+
+
+def surface_clouds(b: int, n: int, g: torch.Generator, dev: torch.device) -> torch.Tensor:
+    """(b, n, 3) surface-like clouds made on the card from the generator:
+    area-weighted samples of the vision atlas (a sphere of radius 0.25),
+    scaled per axis by 0.6-1.4 and bent by a low-frequency displacement.
+    The pruned search is built for surfaces; a Gaussian volume is none."""
+    atlas = vision_charts()
+    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(b, -1, -1)
+    verts = verts * (0.6 + 0.8 * torch.rand(b, 1, 3, device=dev, generator=g))
+    phase = 6.28 * torch.rand(b, 1, 3, device=dev, generator=g)
+    verts = verts + 0.03 * torch.sin(9.0 * verts.roll(1, dims=-1) + phase)
+    faces = torch.as_tensor(atlas.faces, device=dev).long()
+    return batch_sample(verts, faces, n, generator=g)
+
+
+def surface_batch(cfg: VisionConfig, dev: torch.device, seed: int = 0) -> dict:
+    """main_batch with a surface-like gt cloud, for the clustered loss."""
+    batch = main_batch(cfg, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch["gt_points"] = surface_clouds(cfg.batch_size, cfg.number_points, g, dev)
+    return batch
+
+
+def touch_batch(cfg: TouchConfig, seed: int = 0) -> dict:
+    """A seeded random batch shaped as the touch trainer's: gel images,
+    fingertip poses and local touch point clouds of a few millimetres."""
+    rng = np.random.default_rng(seed)
+    b = cfg.batch_size
+    return {
+        "sim_touch": rng.uniform(size=(b, 121, 121, 3)).astype(np.float32),
+        "ref_pos": (rng.normal(size=(b, 3)) * 0.1).astype(np.float32),
+        "ref_rot": np.linalg.qr(rng.normal(size=(b, 3, 3)))[0].astype(np.float32),
+        "samples": (rng.normal(size=(b, cfg.num_samples, 3)) * 0.005).astype(np.float32),
     }
 
 
@@ -194,6 +245,34 @@ def phase_kernels(dev: torch.device) -> dict:
     syn_v = torch.randn(48, n, 3, device=dev, generator=g)
     seg_err = max(seg_err, check_segsum(syn_s.contiguous(), syn_v, n, "synthetic"))
 
+    # the touch trainer's shapes: 64 charts x 3 repeats of 4000 samples of
+    # the chart sheet against clouds of a few millimetres
+    chart = touch_chart()
+    cverts = torch.as_tensor(chart.verts, device=dev)[None].expand(64, -1, -1)
+    cfaces = torch.as_tensor(chart.faces, device=dev).long()
+    tpts = batch_sample(cverts, cfaces, REPEAT * 4000, generator=g)
+    tpreds = torch.cat(torch.split(tpts, 4000, dim=1), 0).contiguous()  # (192, 4000, 3)
+    tgt = (torch.randn(64, 4000, 3, device=dev, generator=g) * 0.005).repeat(REPEAT, 1, 1)
+    nn_err = max(nn_err, check_nn(tpreds, tgt, "touch x->y"))
+    nn_err = max(nn_err, check_nn(tgt, tpreds, "touch y->x"))
+    _, tiy = min_dists(tgt, tpreds)
+    tidx_s, tperm = torch.sort(tiy, dim=1, stable=True)
+    tvals_s = torch.gather(
+        torch.randn(192, 4000, 3, device=dev, generator=g) * 1e-4, 1,
+        tperm[..., None].expand(-1, -1, 3)).contiguous()
+    seg_err = max(seg_err, check_segsum(tidx_s, tvals_s, 4000, "touch"))
+    print(f"  nn_exact at the touch shape (192, 4000)x4000: "
+          f"kernel {time_ms(lambda: min_dists(tpreds, tgt), 20):.3f} ms  "
+          f"plain {time_ms(lambda: min_dists_plain(tpreds, tgt), 3):.3f} ms  "
+          f"bound {9.0 * 192 * 4000 * 4000 / PEAK_FP32_OPS * 1e3:.4f} ms (operations)")
+    touch_scatter = lambda: torch.zeros(192, 4000, 3, device=dev).scatter_add_(  # noqa: E731
+        1, tidx_s.long()[..., None].expand(-1, -1, 3), tvals_s)
+    print(f"  segsum_sorted at the touch shape (192, 4000)->S=4000: "
+          f"kernel {time_ms(lambda: segment_accumulate_sorted(tidx_s, tvals_s, 4000), 50):.3f} ms  "
+          f"plain {time_ms(lambda: segment_sum_plain(tidx_s, tvals_s, 4000), 20):.3f} ms  "
+          f"library {time_ms(touch_scatter, 20):.3f} ms  "
+          f"bound {(192 * 4000 * 16 + 192 * 4000 * 12) / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes)")
+
     b, n, m = preds.shape[0], preds.shape[1], gt.shape[1]
     timing = {
         "nn_exact": {
@@ -225,13 +304,144 @@ def phase_kernels(dev: torch.device) -> dict:
     return timing
 
 
-def phase_main_path() -> tuple[VisionEngine, dict, dict]:
-    cfg = VisionConfig(**MAIN, experiments_root=str(ROOT / "build" / "chip_smoke"))
-    engine = VisionEngine(cfg, log=False)  # the default device: the card
-    batch = engine.to_device(main_batch(cfg))
+def check_cluster(xs, ys, ids, chunk: int, label: str) -> float:
+    """K3 against its plain version: tolerance 0 on distance and index
+    (same rounding, same scan order, same tie rule)."""
+    d, i = cluster.nn_cluster(xs, ys, ids, chunk)
+    d_p, i_p = cluster.nn_cluster_plain(xs, ys, ids, chunk)
+    err = float((d - d_p).abs().max())
+    mismatch = int((i != i_p).sum())
+    print(f"  nn_cluster {label} xs {tuple(xs.shape[:2])} refs {tuple(ys.shape[:2])} "
+          f"table {tuple(ids.shape)} S={chunk}: max_abs_err {err} index mismatches {mismatch}")
+    check(err == 0.0 and mismatch == 0, f"nn_cluster disagrees with its plain version at {label}")
+    return err
+
+
+def check_against_exact(xs, ys_tiled, i_sorted, label: str) -> float:
+    """The clustered neighbour against K1, the oracle: the re-derived
+    distance is never below the exact one (a hard check); returns the
+    share of queries whose distance equals the exact one."""
+    d_exact, _ = min_dists(xs, ys_tiled)
+    d_found = cluster._sq_dist(xs, cluster._take(ys_tiled, i_sorted.long()))
+    agree = float((d_found == d_exact).float().mean())
+    excess = float(d_found.mean() / d_exact.mean() - 1.0)
+    print(f"  nn_cluster vs nn_exact {label}: neighbour agreement {agree:.6f}, "
+          f"mean distance {excess:.3e} above the exact one")
+    check(bool((d_found >= d_exact).all()), f"clustered distance below the exact one at {label}")
+    return agree
+
+
+def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
+    """K3 against its plain version and against K1, then its timings and
+    the prep's at the clustered train step's shapes.  Returns K3's numbers
+    and K2's on the clustered backward's stream."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    err = 0.0
+    # small surface case: S 64, T 16 of 18 chunks
+    pts = surface_clouds(2, 1024 + 1100, g, dev)  # in face order: shuffle, then split
+    pts = pts[:, torch.randperm(pts.shape[1], device=dev, generator=g)]
+    x, y = pts[:, :1024], pts[:, 1024:] * 1.01
+    xs = cluster._edge_pad_points(cluster._sort_by_morton(x)[0], 256).contiguous()
+    ys = cluster._edge_pad_points(cluster._sort_by_morton(y)[0], 64).contiguous()
+    err = max(err, check_cluster(xs, ys, cluster.select_chunks(xs, ys, 64, 16), 64, "surface"))
+    # ties: 5 distinct chunks of lattice points, each 4 times, listed in an
+    # order that is not the index order; queries sit on lattice points, so
+    # equal distances occur inside a chunk and across chunks
+    base = torch.randint(-3, 4, (1, 5, 32, 3), device=dev, generator=g).float()
+    refs = base.repeat(1, 4, 1, 1).reshape(1, 20 * 32, 3).contiguous()
+    queries = torch.randint(-3, 4, (2, 512, 3), device=dev, generator=g).float()
+    table = torch.tensor([17, 2, 12, 7, 9, 4, 0], dtype=torch.int32, device=dev)
+    err = max(err, check_cluster(queries, refs, table.expand(2, 2, -1).contiguous(), 32, "ties"))
+
+    # the clustered train step's inputs: 48 folded prediction clouds sampled
+    # from the initial atlas against 16 distinct surface-like gt clouds
+    n = MAIN["number_points"]
+    atlas = vision_charts()
+    faces = torch.as_tensor(atlas.faces, device=dev).long()
+    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(16, -1, -1)
+    pts = batch_sample(verts, faces, REPEAT * n, generator=g)
+    preds = torch.cat(torch.split(pts, n, dim=1), 0).contiguous()  # (48, 30k, 3)
+    gt = surface_clouds(16, n, g, dev)
+
+    def prep():
+        """Everything of a clustered loss's forward but the two scans."""
+        xs, _ = cluster._sort_by_morton(preds)
+        ys1, _ = cluster._sort_by_morton(gt)
+        xs_p = cluster._edge_pad_points(xs, 256).contiguous()
+        ys1_p = cluster._edge_pad_points(ys1, 256).contiguous()
+        ys_p = ys1_p.repeat(REPEAT, 1, 1)
+        ids1 = cluster.select_chunks(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE)
+        ids2 = cluster.select_chunks(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE)
+        return xs_p, ys1_p, ys_p, ids1, ids2
+
+    xs_p, ys1_p, ys_p, ids1, ids2 = prep()
+    err = max(err, check_cluster(xs_p, ys1_p, ids1, CHUNK, "train-step x->y (y_distinct 16)"))
+    err = max(err, check_cluster(ys_p, xs_p, ids2, CHUNK, "train-step y->x"))
+    _, i1 = cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK)
+    _, i2 = cluster.nn_cluster(ys_p, xs_p, ids2, CHUNK)
+    agree = [check_against_exact(xs_p, ys_p, i1, "x->y"), check_against_exact(ys_p, xs_p, i2, "y->x")]
+    check(min(agree) >= MIN_AGREEMENT,
+          f"clustered neighbour agreement {agree} below {MIN_AGREEMENT}")
+
+    b, np_, t = xs_p.shape[0], xs_p.shape[1], ids1.shape[2]
+    pairs = b * np_ * t * CHUNK
+    moved = (xs_p.numel() + ys1_p.numel() + ids1.numel() + 2 * b * np_) * 4
+    timing = {
+        "ms": time_ms(lambda: cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK), 20),
+        "ms_y_to_x": time_ms(lambda: cluster.nn_cluster(ys_p, xs_p, ids2, CHUNK), 20),
+        "plain_ms": time_ms(lambda: cluster.nn_cluster_plain(xs_p, ys1_p, ids1, CHUNK), 3),
+        "library_ms": None,  # no single PyTorch call computes a table-driven pruned NN
+        # 3 sub + 3 mul + 2 add + 1 compare per (query, listed ref) pair; by
+        # bytes (queries, distinct refs and table read once, outputs written
+        # once) the bound is far lower
+        "bound_ms": max(9.0 * pairs / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
+        "bound_by": "operations" if 9.0 * pairs / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
+        "max_abs_err": err,
+        "agreement_with_exact": agree,
+    }
+    sort_ms = time_ms(lambda: (cluster._sort_by_morton(preds), cluster._sort_by_morton(gt)), 10)
+    select_ms = time_ms(lambda: (cluster.select_chunks(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE),
+                                 cluster.select_chunks(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE)), 10)
+    timing["prep_ms"] = time_ms(prep, 10)
+    print(f"  nn_cluster at {tuple(xs_p.shape[:2])}, T={t}, S={CHUNK}: kernel x->y {timing['ms']:.3f} ms, "
+          f"y->x {timing['ms_y_to_x']:.3f} ms, plain {timing['plain_ms']:.3f} ms, "
+          f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    print(f"  prep of one clustered loss (both directions): {timing['prep_ms']:.3f} ms, of which "
+          f"Morton sorts of 48 + 16 clouds {sort_ms:.3f} ms, chunk selection {select_ms:.3f} ms; "
+          f"the two scans take {timing['ms'] + timing['ms_y_to_x']:.3f} ms")
+
+    # K2 on the clustered backward's stream: per cloud the n own entries and
+    # the m cross entries, original-frame ids, one 60k-entry stable sort
+    xperm = cluster._sort_by_morton(preds)[1]
+    iy = i2[:, :n].long().clamp(0, n - 1)
+    idx = torch.cat([xperm, cluster._take(xperm, iy)], dim=1)  # (48, 60000)
+    vals = torch.randn(b, 2 * n, 3, device=dev, generator=g) * 1e-4
+    idx_s, perm = torch.sort(idx, dim=1, stable=True)
+    idx_s = idx_s.to(torch.int32).contiguous()
+    vals_s = torch.gather(vals, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
+    seg_err = check_segsum(idx_s, vals_s, n, "clustered stream")
+    stream = {
+        "ms": time_ms(lambda: segment_accumulate_sorted(idx_s, vals_s, n), 50),
+        "plain_ms": time_ms(lambda: segment_sum_plain(idx_s, vals_s, n), 20),
+        "library_ms": time_ms(lambda: torch.zeros(b, n, 3, device=dev).scatter_add_(
+            1, idx_s.long()[..., None].expand(-1, -1, 3), vals_s), 20),
+        "bound_ms": (b * 2 * n * 16 + b * n * 12) / PEAK_HBM_BYTES * 1e3,
+        "with_sort_ms": time_ms(lambda: scatter_add_3(idx, vals, n), 20),
+        "max_abs_err": seg_err,
+    }
+    print(f"  segsum_sorted on the {tuple(idx_s.shape)} clustered stream: kernel {stream['ms']:.3f} ms  "
+          f"plain {stream['plain_ms']:.3f} ms  library {stream['library_ms']:.3f} ms  "
+          f"bound {stream['bound_ms']:.4f} ms (bytes); scatter_add_3 with its stable sort "
+          f"{stream['with_sort_ms']:.3f} ms")
+    return timing, stream
+
+
+def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
+    """1 warm-up + 3 train steps + 1 eval step with the launch counters set
+    to 0 just before and read just after; returns the counts by kernel."""
+    held = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
     for k in KERNELS:
         k.launches = 0
     losses, step_ms = [], []
@@ -245,18 +455,49 @@ def phase_main_path() -> tuple[VisionEngine, dict, dict]:
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = {k.name: k.launches for k in KERNELS}
 
-    print(f"  train losses {losses}  eval loss {eval_loss}")
-    print(f"  train step ms {[round(t, 3) for t in step_ms]}  median of 3 after warm-up "
+    print(f"  [{label}] train losses {losses}  eval loss {eval_loss}")
+    print(f"  [{label}] train step ms {[round(t, 3) for t in step_ms]}  median of 3 after warm-up "
           f"{float(np.median(step_ms[1:])):.3f}  eval step ms {eval_ms:.3f}")
-    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  launches {launches}")
-    check(all(np.isfinite(losses + [eval_loss])), "non-finite loss on the main path")
+    print(f"  [{label}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"({held / 2**30:.3f} GiB held before the path)  launches {launches}")
+    check(all(np.isfinite(losses + [eval_loss])), f"non-finite loss on the {label} path")
+    check(launches == expected, f"unexpected kernel launches on the {label} path: {launches}")
+    return launches
+
+
+def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
+    """The three main paths, each through its engine as a user builds it.
+    Returns the engines with their batches, and the launches by path."""
+    paths, launches = {}, {}
+
+    cfg = VisionConfig(**MAIN, experiments_root=EXPERIMENTS)
+    engine = VisionEngine(cfg, log=False)  # the default device: the card
+    batch = engine.to_device(main_batch(cfg))
     # 2 NN launches per loss (both directions), 2 segment sums per backward
-    check(launches == {NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4},
-          f"unexpected kernel launches on the main path: {launches}")
-    return engine, batch, launches
+    launches["exact"] = run_path(
+        engine, batch, {NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4, NN_CLUSTER.name: 0}, "exact")
+    paths["exact"] = (engine, batch)
+
+    clustered = {k: v for k, v in MAIN.items() if k != "loss_nn"}  # the default
+    cfg = VisionConfig(**clustered, experiments_root=EXPERIMENTS)
+    check(cfg.loss_nn == "clustered", "the default loss_nn is no longer 'clustered'")
+    engine = VisionEngine(cfg, log=False)
+    batch = engine.to_device(surface_batch(cfg, dev))
+    # 2 pruned scans per loss; one fused segment sum per backward (only dx)
+    launches["clustered"] = run_path(
+        engine, batch, {NN_EXACT.name: 0, SEGSUM.name: 4, NN_CLUSTER.name: 2 * 5}, "clustered")
+    paths["clustered"] = (engine, batch)
+
+    cfg = TouchConfig(eval=True, experiments_root=EXPERIMENTS)  # batch 64, 4000 samples, exact
+    engine = TouchEngine(cfg, log=False)
+    batch = engine.to_device(touch_batch(cfg))
+    launches["touch"] = run_path(
+        engine, batch, {NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4, NN_CLUSTER.name: 0}, "touch")
+    paths["touch"] = (engine, batch)
+    return paths, launches
 
 
-def loss_and_grads(engine: VisionEngine, batch: dict, seed: int):
+def loss_and_grads(engine, batch: dict, seed: int):
     engine.model.eval()  # running statistics: the two passes see one model
     engine.model.zero_grad(set_to_none=True)
     loss = engine._loss(batch, engine.step_generator(seed), None)
@@ -264,9 +505,11 @@ def loss_and_grads(engine: VisionEngine, batch: dict, seed: int):
     return float(loss.detach()), [p.grad.clone() for p in engine.model.parameters()]
 
 
-def phase_outputs(engine: VisionEngine, batch: dict) -> None:
-    """Full width: kernels vs plain versions inside the whole step.  Small
-    width: the card vs the CPU."""
+def phase_outputs(paths: dict) -> None:
+    """Full width: kernels vs plain versions inside the whole exact step,
+    the clustered Chamfer on the kernels vs the plain versions, and the
+    clustered loss vs the exact one.  Small width: the card vs the CPU."""
+    engine, batch = paths["exact"]
     t0 = time.perf_counter()
     loss_k, grads_k = loss_and_grads(engine, batch, 7)
     torch.cuda.synchronize()
@@ -286,29 +529,74 @@ def phase_outputs(engine: VisionEngine, batch: dict) -> None:
     check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), "full-width loss: kernels != plain")
     check(worst <= 1e-3, "full-width gradients: kernels != plain")
 
-    small = dict(MAIN, batch_size=2, number_points=256, num_gcn_layers=3,
-                 hidden_gcn_size=32, num_cnn_blocks=3,
-                 experiments_root=str(ROOT / "build" / "chip_smoke"))
-    cfg = VisionConfig(**small)
+    # the clustered Chamfer at the train step's shapes: 48 folded clouds
+    # sampled from the deformed mesh against the 16 gt clouds
+    engine, batch = paths["clustered"]
+    n = engine.config.number_points
+    engine.model.eval()
+    with torch.no_grad():
+        charts = prepare_charts(batch["touch_charts"], engine.initial_mesh, 16)
+        verts, _ = engine.model(batch["img"], charts, engine.adj, engine.original_adj)
+        pts = batch_sample(verts, engine.faces, REPEAT * n, generator=engine.step_generator(8))
+    preds = torch.cat(torch.split(pts, n, dim=1), 0).contiguous()
+    out = {}
+    for plain in (False, True):
+        x = preds.clone().requires_grad_()
+        cd = cluster.chamfer_clustered_tiled_gt(x, batch["gt_points"], REPEAT, plain=plain)
+        (grad,) = torch.autograd.grad(cd.sum(), x)
+        out[plain] = (cd.detach(), grad)
+    value_err = float((out[False][0] - out[True][0]).abs().max())
+    grad_err = float((out[False][1] - out[True][1]).abs().max())
+    grad_max = float(out[True][1].abs().max())
+    print(f"  chamfer_clustered_tiled_gt at (48, {n}) x (16, {n}): value max_abs_err {value_err}, "
+          f"x-gradient max_abs_err {grad_err:.3e} against a largest element of {grad_max:.3e}")
+    # the forward is the same arithmetic on the same neighbours; the backward
+    # differs by the order of index_add_'s atomic adds: K2's tolerance, 1e-5
+    # relative, against the gradient's largest element
+    check(value_err == 0.0, "clustered Chamfer value: kernels != plain")
+    check(grad_err <= 1e-5 * grad_max, "clustered Chamfer x-gradient: kernels != plain")
+
+    # clustered against exact on the same batch and the same draws: a pruned
+    # search can miss a neighbour, never find a nearer one
+    loss_c, _ = loss_and_grads(engine, batch, 7)
+    engine.config.loss_nn = "exact"
+    loss_e, _ = loss_and_grads(engine, batch, 7)
+    engine.config.loss_nn = "clustered"
+    print(f"  full width: clustered loss {loss_c} exact loss {loss_e} "
+          f"relative gap {(loss_c - loss_e) / loss_e:.3e}")
+    check(loss_c >= loss_e * (1 - 1e-6), "clustered loss below the exact loss")
+
+    small = dict(batch_size=2, number_points=256, num_gcn_layers=3, hidden_gcn_size=32,
+                 num_cnn_blocks=3, eval=True, experiments_root=EXPERIMENTS)
     rng = np.random.default_rng(1)
     host = {
         "img": rng.uniform(size=(2, 64, 64, 3)).astype(np.float32),
         "gt_points": (rng.normal(size=(2, 256, 3)) * 0.1).astype(np.float32),
         "touch_charts": (rng.normal(size=(2, 5, 4, 25, 4)) * 0.1).astype(np.float32),
     }
+    coded = dict(host, touch_charts=host["touch_charts"].copy())
+    coded["touch_charts"][..., 3] = rng.integers(0, 3, size=(2, 5, 4, 25))  # mask codes: contacts
     draws = draw_sample_noise(2, REPEAT * 256, torch.Generator().manual_seed(2))
-    results = {}
-    for device in ("cuda", "cpu"):
-        eng = VisionEngine(cfg, device=device, log=False)
-        d = tuple(t.to(device) for t in draws)
-        results[device] = float(eng.eval_step(eng.to_device(host), draws=d))
-    rel = abs(results["cuda"] - results["cpu"]) / abs(results["cpu"])
-    print(f"  small width: eval loss card {results['cuda']} cpu {results['cpu']} rel {rel:.2e}")
-    # the card runs the GCN products in bf16 and the convolutions in TF32
-    check(rel <= 5e-2, "small-width loss: card and CPU disagree")
+    for label, extra, data in (
+        ("exact", dict(loss_nn="exact"), host),
+        ("clustered, touch_global and touch_plane", dict(touch_global=True, touch_plane=True), coded),
+    ):
+        cfg = VisionConfig(**small, **extra)
+        results = {}
+        for device in ("cuda", "cpu"):
+            eng = VisionEngine(cfg, device=device, log=False)
+            d = tuple(t.to(device) for t in draws)
+            results[device] = float(eng.eval_step(eng.to_device(data), draws=d))
+            trained = float(eng.train_step(eng.to_device(data), draws=d))
+            check(np.isfinite(trained), f"small width ({label}): non-finite train loss on {device}")
+        rel = abs(results["cuda"] - results["cpu"]) / abs(results["cpu"])
+        print(f"  small width ({label}): eval loss card {results['cuda']} "
+              f"cpu {results['cpu']} rel {rel:.2e}")
+        # the card runs the GCN products in bf16 and the convolutions in TF32
+        check(rel <= 5e-2, f"small-width loss ({label}): card and CPU disagree")
 
 
-def phase_profile(engine: VisionEngine, batch: dict) -> None:
+def phase_profile(engine, batch: dict, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     gen = engine.step_generator(200)
@@ -322,10 +610,11 @@ def phase_profile(engine: VisionEngine, batch: dict) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        print("  profile: no device time recorded (not measured)")
+        print(f"  profile ({label}): no device time recorded (not measured)")
         return
-    print(f"  profile of one train step: wall {wall_ms:.3f} ms (under the profiler), "
-          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    print(f"  profile of one {label} train step: wall {wall_ms:.3f} ms (under the profiler), "
+          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
 
@@ -342,27 +631,33 @@ def main() -> int:
     phase_build()
     print("== 3 kernels against their plain versions")
     timing = phase_kernels(dev)
-    print("== 4 main path: v_t_g train step, batch 16, 30k points, full width")
-    engine, batch, launches = phase_main_path()
+    timing[NN_CLUSTER.name], timing[SEGSUM.name]["clustered_stream"] = phase_cluster(dev)
+    print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch")
+    paths, launches = phase_main_paths(dev)
     print("== 5 outputs")
-    phase_outputs(engine, batch)
+    phase_outputs(paths)
     print("== 6 profile")
-    phase_profile(engine, batch)
+    for label, (engine, batch) in paths.items():
+        phase_profile(engine, batch, label)
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         NN_EXACT.name: "active_3d_vision_and_touch_tpu/ops/chamfer.py:32",
         SEGSUM.name: "active_3d_vision_and_touch_tpu/ops/segsum.py:43",
+        NN_CLUSTER.name: "active_3d_vision_and_touch_tpu/ops/chamfer_cluster.py:119",
     }
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {
             "name": k.name,
             "route": "cuda",
             "source": str(k.source.relative_to(ROOT)),
             "replaces": sources[k.name],
-            "launches": launches[k.name],
-            **{key: timing[k.name][key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            # summed over the main paths, each counted from 0
+            "launches": sum(by_kernel[k.name] for by_kernel in launches.values()),
+            "launches_by_path": {path: by_kernel[k.name] for path, by_kernel in launches.items()},
+            **{key: timing[k.name][key] for key in fields},
+            **{key: value for key, value in timing[k.name].items() if key not in fields},
         }
         for k in KERNELS
     ]

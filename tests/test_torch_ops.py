@@ -225,8 +225,13 @@ def test_mesh_chamfer_distance_runs_and_is_seeded(rng):
     c = mesh_chamfer_distance(verts, faces, gt, torch.Generator().manual_seed(43), num=200)
     assert a.shape == (1,) and torch.isfinite(a).all()
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="K3"):
-        mesh_chamfer_distance(verts, faces, gt, num=10, nn="clustered")
+    # the clustered search is exhaustive at this size: the exact value
+    d = mesh_chamfer_distance(
+        verts, faces, gt, torch.Generator().manual_seed(42), num=200, nn="clustered"
+    )
+    np.testing.assert_allclose(d.numpy(), a.numpy(), rtol=1e-5)
+    with pytest.raises(ValueError, match="clustered"):
+        mesh_chamfer_distance(verts, faces, gt, num=10, nn="pruned")
 
 
 def test_mesh_chamfer_folds_repeats_like_jax(rng):
