@@ -9,13 +9,18 @@ package, and runs these phases in order; any failure exits non-zero:
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the TF32 settings, set explicitly;
 2. build: every hand-written kernel from ``csrc/``, one ``nvcc`` each, all
-   started together;
+   started together; no register spills; the instruction mix of the exact
+   nearest-neighbour kernel's scan loop as built (``cuobjdump -sass``);
 3. kernels against their plain PyTorch versions on the card, at test shapes
-   and at the shapes the train step gives them, each with its stated
-   tolerance; the clustered search against the exact one, its oracle; then
-   CUDA-event timings (median of repeated launches) of each kernel, its
-   plain version and, where one exists, a single PyTorch call computing the
-   same function, and of the clustered search's torch-op prep;
+   (the seeded cases of the package's ``testing`` module: tile edges, placed
+   ties, run shapes) and at the shapes the train step gives them, each with
+   its stated tolerance; the segment sum twice on one input, bit-equal; the
+   clustered search against the exact one, its oracle; then CUDA-event
+   timings (median of repeated launches) of each kernel, its plain version
+   and, where one exists, a single PyTorch call computing the same
+   function, and of the clustered search's torch-op prep; the segment sum
+   must be no slower than ``scatter_add_`` by the device's time (replays of
+   a CUDA graph of 20 launches);
 4. the main paths at full width, each taking 1 warm-up and 3 train steps
    and 1 eval step from random weights made from the seed, with every
    launch counter set to 0 just before and read just after, and each kernel
@@ -36,6 +41,7 @@ package, and runs these phases in order; any failure exits non-zero:
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,13 +55,21 @@ from active_3d_vision_and_touch_tpu_torch.core.config import TouchConfig, Vision
 from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
 from active_3d_vision_and_touch_tpu_torch.ops import KERNELS, NN_CLUSTER, NN_EXACT, SEGSUM
 from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
-from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all
+from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all, nvcc_path
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import min_dists, min_dists_plain
 from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample, draw_sample_noise
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
     scatter_add_3,
     segment_accumulate_sorted,
     segment_sum_plain,
+)
+from active_3d_vision_and_touch_tpu_torch.testing import (
+    NN_SHAPES,
+    NN_TIE_CASES,
+    SEGSUM_CASES,
+    nn_shape_case,
+    nn_tie_case,
+    segsum_case,
 )
 from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
@@ -76,6 +90,11 @@ CHUNK, CHUNKS_PER_TILE = 128, 24  # the clustered search's defaults
 # H100 showed 0.9765 (predictions -> gt) and 0.9273 (gt -> predictions); the
 # clouds are made from a seed, so a fall below 0.90 is a change in the code
 MIN_AGREEMENT = 0.90
+# K1's time targets at the two main-path shapes, on a card at its 700 W limit.
+# They are printed as met or missed and fail nothing: a card set to a lower
+# limit runs slower.  What is checked is relative, within one run
+K1_TARGET_MS = {"(48, 30000)x30000": 16.0, "the touch shape (192, 4000)x4000": 1.25}
+SM_LANES = 132 * 128  # an H100 SXM: 132 SMs, each issuing for 4 x 32 lanes a clock
 EXPERIMENTS = str(ROOT / "build" / "chip_smoke")
 
 
@@ -84,8 +103,11 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
+def time_ms(fn, reps: int = 10, inner: int = 1) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``inner`` calls of
+    ``fn``, per call, after a warm-up.  With ``inner`` = 1 a call of a few
+    tens of microseconds is timed with the host's enqueue time in it; many
+    calls between one pair of events leave the device's time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -93,11 +115,25 @@ def time_ms(fn, reps: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 10, inner: int = 20) -> float:
+    """Device time of one call of ``fn``: ``inner`` calls captured into a
+    CUDA graph, the median over ``reps`` replays, per call.  No host work
+    lies between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return time_ms(graph.replay, reps) / inner
 
 
 def nvidia_smi(query: str) -> str:
@@ -172,8 +208,40 @@ def phase_build() -> None:
     seconds = build_all(list(KERNELS))
     print(f"build: {len(KERNELS)} kernels in {seconds:.2f} s")
     for k in KERNELS:
-        regs = [ln.strip() for ln in k.ptxas_log.splitlines() if "registers" in ln]
-        print(f"  {k.name}: {'; '.join(regs) or 'library already built'}")
+        used = [ln.strip() for ln in k.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"  {k.name}: {'; '.join(used) or 'library already built'}")
+        spills = [ln for ln in used if "spill" in ln]
+        check(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+              f"{k.name}: ptxas reports register spills")
+    print(f"  {NN_EXACT.name} scan loop as built: {sass_inner_loop(NN_EXACT)}")
+
+
+def sass_inner_loop(kernel) -> str:
+    """The instruction mix of the built kernel's scan loop, read from
+    ``cuobjdump -sass``: among the spans closed by a backward branch, the
+    one densest in FMUL.  A pair of points takes 3 FMUL, so the span's FMUL
+    count gives the pairs one pass of the loop serves."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return "cuobjdump not found: not read"
+    out = subprocess.run([str(cuobjdump), "-sass", str(kernel.library)],
+                         capture_output=True, text=True, timeout=300).stdout
+    code = [(int(a, 16), op) for a, op in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_.]*)[^\n]*;", out)]
+    loops = []
+    for addr, target in re.findall(r"/\*([0-9a-f]{4,})\*/[^\n]*\bBRA\s+0x([0-9a-f]+)", out):
+        lo, hi = int(target, 16), int(addr, 16)
+        if lo <= hi:
+            ops = [op.split(".")[0] for a, op in code if lo <= a <= hi]
+            loops.append((ops.count("FMUL") / len(ops), ops))
+    density, ops = max(loops, default=(0.0, []))
+    if density == 0.0:
+        return "no loop with FMUL found: not read"
+    pairs = ops.count("FMUL") / 3
+    mix = sorted(((ops.count(op), op) for op in set(ops)), reverse=True)
+    return (f"{len(ops)} instructions for {pairs:.0f} pairs, {len(ops) / pairs:.2f} a pair: "
+            + ", ".join(f"{n} {op}" for n, op in mix[:8])
+            + f", {sum(n for n, _ in mix[8:])} others")
 
 
 def check_nn(x: torch.Tensor, y: torch.Tensor, label: str) -> float:
@@ -189,10 +257,15 @@ def check_nn(x: torch.Tensor, y: torch.Tensor, label: str) -> float:
     return err
 
 
-def check_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int, label: str) -> float:
+def check_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int, label: str,
+                 twice: bool = False) -> float:
     """K2 against its plain version (index_add_, which adds with atomics on
-    the card): |err| <= 1e-5 * (1 + Σ|v| of the segment)."""
+    the card): |err| <= 1e-5 * (1 + Σ|v| of the segment).  ``twice`` runs
+    the kernel a second time on the same input and requires equal bits."""
     out = segment_accumulate_sorted(idx_s, vals_s, s)
+    if twice:
+        check(torch.equal(out, segment_accumulate_sorted(idx_s, vals_s, s)),
+              f"segsum_sorted gave two different results on one input at {label}")
     ref = segment_sum_plain(idx_s, vals_s, s)
     scale = segment_sum_plain(idx_s, vals_s.abs(), s)
     err = float((out - ref).abs().max())
@@ -200,9 +273,81 @@ def check_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int, label: str) 
     rows = torch.arange(idx_s.shape[0], device=idx_s.device)[:, None] * (s + 1)
     largest = int(torch.bincount((idx_s.clamp(0, s).long() + rows).flatten()).max())
     print(f"  segsum_sorted {label} {tuple(idx_s.shape)}->S={s}: max_abs_err {err} "
-          f"largest run in a row {largest}")
+          f"largest run in a row {largest}{'  bit-equal twice' if twice else ''}")
     check(ok, f"segsum_sorted disagrees with its plain version at {label}")
     return err
+
+
+def time_nn(x: torch.Tensor, y: torch.Tensor, plain_reps: int) -> dict:
+    """K1's times at one shape beside its two bounds."""
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    # 3 sub + 3 mul + 2 add + 1 compare per (query, ref) pair over the FP32
+    # peak, which counts an FMA as two; none of the nine fuses, so at one
+    # instruction a lane a clock the issue bound is twice that
+    bound_ms = 9.0 * b * n * m / PEAK_FP32_OPS * 1e3
+    smi = subprocess.Popen(  # reads the SM clock while the launches run
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    ms = time_ms(lambda: min_dists(x, y), 20)
+    sm_mhz = int(smi.communicate(timeout=60)[0].split()[0])
+    return {
+        "ms": ms,
+        "sm_clock_mhz": sm_mhz,
+        "issue_slots_a_pair": ms * 1e-3 * sm_mhz * 1e6 * SM_LANES / (b * n * m),
+        "ms_y_to_x": time_ms(lambda: min_dists(y, x), 20),
+        "plain_ms": time_ms(lambda: min_dists_plain(x, y), plain_reps),
+        "library_ms": None,
+        "bound_ms": bound_ms,
+        "bound_by": "operations",
+        "issue_bound_ms": 2 * bound_ms,
+    }
+
+
+def time_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int) -> dict:
+    """K2's times on one sorted stream beside ``scatter_add_``'s, each as
+    the median of single calls, as 20 calls between one pair of events, and
+    as 20 calls replayed from a CUDA graph (the device's time alone)."""
+    b, m = idx_s.shape
+    expand = idx_s.long()[..., None].expand(-1, -1, 3)
+    kernel = lambda: segment_accumulate_sorted(idx_s, vals_s, s)  # noqa: E731
+    library = lambda: torch.zeros(  # noqa: E731
+        b, s, 3, device=idx_s.device).scatter_add_(1, expand, vals_s)
+    return {
+        "ms": time_ms(kernel, 50),
+        "ms_batched": time_ms(kernel, 10, inner=20),
+        "ms_graphed": graph_ms(kernel),
+        "plain_ms": time_ms(lambda: segment_sum_plain(idx_s, vals_s, s), 20),
+        "library_ms": time_ms(library, 50),
+        "library_ms_batched": time_ms(library, 10, inner=20),
+        "library_ms_graphed": graph_ms(library),
+        # ids (4 B) and values (12 B) read once, 12 B written per segment;
+        # the kernel's zero-fill of empty segments is not in the bound
+        "bound_ms": (b * m * 16 + b * s * 12) / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def print_nn(label: str, t: dict) -> None:
+    print(f"  nn_exact at {label}: kernel {t['ms']:.3f} ms (y->x {t['ms_y_to_x']:.3f} ms)  "
+          f"plain {t['plain_ms']:.3f} ms  bound {t['bound_ms']:.4f} ms (operations), "
+          f"issue bound {t['issue_bound_ms']:.4f} ms, of which the kernel reaches "
+          f"{t['issue_bound_ms'] / t['ms']:.3f}; {t['issue_slots_a_pair']:.2f} issue slots a pair "
+          f"at the {t['sm_clock_mhz']} MHz read meanwhile; target {K1_TARGET_MS[label]} ms "
+          f"{'met' if max(t['ms'], t['ms_y_to_x']) <= K1_TARGET_MS[label] else 'MISSED'}")
+
+
+def print_segsum(label: str, t: dict) -> None:
+    """Prints K2's times and requires the kernel to be no slower than
+    ``scatter_add_`` by the device's time (graph replays): the single and
+    batched readings hold the host's enqueue time and are only printed."""
+    print(f"  segsum_sorted at {label}: kernel {t['ms']:.4f} ms single, {t['ms_batched']:.4f} ms "
+          f"batched, {t['ms_graphed']:.4f} ms graphed  plain {t['plain_ms']:.3f} ms  "
+          f"library (scatter_add_) {t['library_ms']:.4f} ms single, "
+          f"{t['library_ms_batched']:.4f} ms batched, {t['library_ms_graphed']:.4f} ms graphed  "
+          f"bound {t['bound_ms']:.4f} ms (bytes); kernel no slower than the library: "
+          f"single {t['ms'] <= t['library_ms']}, batched {t['ms_batched'] <= t['library_ms_batched']}")
+    check(t["ms_graphed"] <= t["library_ms_graphed"],
+          f"segsum_sorted is slower than scatter_add_ at {label}")
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -216,6 +361,15 @@ def phase_kernels(dev: torch.device) -> dict:
     # ties: every ref repeated, queries sitting on refs
     base = torch.randint(-3, 4, (2, 500, 3), device=dev, generator=g).float()
     nn_err = max(nn_err, check_nn(base[:, :300].contiguous(), torch.cat([base, base], 1), "ties"))
+    # sizes on and beside the tiles, and equal minima placed in one load of
+    # four refs, in the next load, in the next group of eight and in
+    # neighbouring tiles
+    for n, m in NN_SHAPES:
+        x, y = (torch.from_numpy(a).to(dev) for a in nn_shape_case(n, m))
+        nn_err = max(nn_err, check_nn(x, y, "tile edge"))
+    for name in NN_TIE_CASES:
+        x, y = (torch.from_numpy(a).to(dev) for a in nn_tie_case(name))
+        nn_err = max(nn_err, check_nn(x, y, f"ties {name}"))
 
     # main-path inputs: 3 x 30k area-weighted samples of the initial atlas
     # per cloud, folded onto the batch, against the tiled gt cloud
@@ -236,14 +390,22 @@ def phase_kernels(dev: torch.device) -> dict:
     idx_s, perm = torch.sort(iy, dim=1, stable=True)
     vals = torch.randn(gt.shape, device=dev, generator=g) * 1e-4
     vals_s = torch.gather(vals, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
-    seg_err = check_segsum(idx_s, vals_s, n, "train-step")
+    seg_err = check_segsum(idx_s, vals_s, n, "train-step", twice=True)
     # synthetic: a duplicate-heavy id, empty segments, out-of-range ids
     ids = torch.randint(0, n + 2000, (48, n), device=dev, generator=g)
     ids[:, :5000] = 17
     ids[ids % 7 == 3] = 12
     syn_s, _ = torch.sort(ids.int(), dim=1)
     syn_v = torch.randn(48, n, 3, device=dev, generator=g)
-    seg_err = max(seg_err, check_segsum(syn_s.contiguous(), syn_v, n, "synthetic"))
+    seg_err = max(seg_err, check_segsum(syn_s.contiguous(), syn_v, n, "synthetic", twice=True))
+    # run lengths around the one-thread / one-warp threshold and the slab
+    # size, short runs across a slab's end, a slab packed with 9-entry runs,
+    # rows with nothing to sum, stream lengths that are no multiple of four
+    for name in SEGSUM_CASES:
+        case_idx, case_vals, case_s = segsum_case(name)
+        seg_err = max(seg_err, check_segsum(
+            torch.from_numpy(case_idx).to(dev), torch.from_numpy(case_vals).to(dev), case_s,
+            name, twice=True))
 
     # the touch trainer's shapes: 64 charts x 3 repeats of 4000 samples of
     # the chart sheet against clouds of a few millimetres
@@ -261,46 +423,19 @@ def phase_kernels(dev: torch.device) -> dict:
         torch.randn(192, 4000, 3, device=dev, generator=g) * 1e-4, 1,
         tperm[..., None].expand(-1, -1, 3)).contiguous()
     seg_err = max(seg_err, check_segsum(tidx_s, tvals_s, 4000, "touch"))
-    print(f"  nn_exact at the touch shape (192, 4000)x4000: "
-          f"kernel {time_ms(lambda: min_dists(tpreds, tgt), 20):.3f} ms  "
-          f"plain {time_ms(lambda: min_dists_plain(tpreds, tgt), 3):.3f} ms  "
-          f"bound {9.0 * 192 * 4000 * 4000 / PEAK_FP32_OPS * 1e3:.4f} ms (operations)")
-    touch_scatter = lambda: torch.zeros(192, 4000, 3, device=dev).scatter_add_(  # noqa: E731
-        1, tidx_s.long()[..., None].expand(-1, -1, 3), tvals_s)
-    print(f"  segsum_sorted at the touch shape (192, 4000)->S=4000: "
-          f"kernel {time_ms(lambda: segment_accumulate_sorted(tidx_s, tvals_s, 4000), 50):.3f} ms  "
-          f"plain {time_ms(lambda: segment_sum_plain(tidx_s, tvals_s, 4000), 20):.3f} ms  "
-          f"library {time_ms(touch_scatter, 20):.3f} ms  "
-          f"bound {(192 * 4000 * 16 + 192 * 4000 * 12) / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes)")
-
-    b, n, m = preds.shape[0], preds.shape[1], gt.shape[1]
     timing = {
-        "nn_exact": {
-            "ms": time_ms(lambda: min_dists(preds, gt), 20),
-            "plain_ms": time_ms(lambda: min_dists_plain(preds, gt), 10),
-            "library_ms": None,
-            # 3 sub + 3 mul + 2 add + 1 compare per (query, ref) pair
-            "bound_ms": 9.0 * b * n * m / PEAK_FP32_OPS * 1e3,
-            "bound_by": "operations",
-            "max_abs_err": nn_err,
-        },
-        "segsum_sorted": {
-            "ms": time_ms(lambda: segment_accumulate_sorted(idx_s, vals_s, n), 50),
-            "plain_ms": time_ms(lambda: segment_sum_plain(idx_s, vals_s, n), 20),
-            "library_ms": time_ms(lambda: torch.zeros(b, n, 3, device=dev).scatter_add_(
-                1, idx_s.long()[..., None].expand(-1, -1, 3), vals_s), 20),
-            # ids (4 B) and values (12 B) read once, 12 B written per segment
-            "bound_ms": (b * m * 16 + b * n * 12) / PEAK_HBM_BYTES * 1e3,
-            "bound_by": "bytes",
-            "max_abs_err": seg_err,
-        },
+        "nn_exact": {**time_nn(preds, gt, 10), "max_abs_err": nn_err,
+                     "touch_shape": time_nn(tpreds, tgt, 3)},
+        "segsum_sorted": {**time_segsum(idx_s, vals_s, n), "max_abs_err": seg_err,
+                          "touch_shape": time_segsum(tidx_s, tvals_s, 4000)},
     }
+    print_nn("(48, 30000)x30000", timing["nn_exact"])
+    print_nn("the touch shape (192, 4000)x4000", timing["nn_exact"]["touch_shape"])
+    print_segsum("(48, 30000)->S=30000", timing["segsum_sorted"])
+    print_segsum("the touch shape (192, 4000)->S=4000", timing["segsum_sorted"]["touch_shape"])
     one = preds[:1].contiguous(), gt[:1].contiguous()
     print(f"  yardstick at (1, 30000)x30000: nn_exact {time_ms(lambda: min_dists(*one)):.3f} ms, "
           f"torch.cdist(...).min(-1) {time_ms(lambda: torch.cdist(*one).min(-1)):.3f} ms")
-    for name, t in timing.items():
-        print(f"  {name}: kernel {t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
-              f"library {t['library_ms']}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return timing
 
 
@@ -396,6 +531,8 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
         # once) the bound is far lower
         "bound_ms": max(9.0 * pairs / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
         "bound_by": "operations" if 9.0 * pairs / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
+        # nine instructions a pair, none fused, at one a lane a clock
+        "issue_bound_ms": 2 * 9.0 * pairs / PEAK_FP32_OPS * 1e3,
         "max_abs_err": err,
         "agreement_with_exact": agree,
     }
@@ -405,7 +542,9 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
     timing["prep_ms"] = time_ms(prep, 10)
     print(f"  nn_cluster at {tuple(xs_p.shape[:2])}, T={t}, S={CHUNK}: kernel x->y {timing['ms']:.3f} ms, "
           f"y->x {timing['ms_y_to_x']:.3f} ms, plain {timing['plain_ms']:.3f} ms, "
-          f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+          f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}), "
+          f"issue bound {timing['issue_bound_ms']:.4f} ms, of which the kernel reaches "
+          f"{timing['issue_bound_ms'] / timing['ms']:.3f}")
     print(f"  prep of one clustered loss (both directions): {timing['prep_ms']:.3f} ms, of which "
           f"Morton sorts of 48 + 16 clouds {sort_ms:.3f} ms, chunk selection {select_ms:.3f} ms; "
           f"the two scans take {timing['ms'] + timing['ms_y_to_x']:.3f} ms")
@@ -421,18 +560,12 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
     vals_s = torch.gather(vals, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
     seg_err = check_segsum(idx_s, vals_s, n, "clustered stream")
     stream = {
-        "ms": time_ms(lambda: segment_accumulate_sorted(idx_s, vals_s, n), 50),
-        "plain_ms": time_ms(lambda: segment_sum_plain(idx_s, vals_s, n), 20),
-        "library_ms": time_ms(lambda: torch.zeros(b, n, 3, device=dev).scatter_add_(
-            1, idx_s.long()[..., None].expand(-1, -1, 3), vals_s), 20),
-        "bound_ms": (b * 2 * n * 16 + b * n * 12) / PEAK_HBM_BYTES * 1e3,
+        **time_segsum(idx_s, vals_s, n),
         "with_sort_ms": time_ms(lambda: scatter_add_3(idx, vals, n), 20),
         "max_abs_err": seg_err,
     }
-    print(f"  segsum_sorted on the {tuple(idx_s.shape)} clustered stream: kernel {stream['ms']:.3f} ms  "
-          f"plain {stream['plain_ms']:.3f} ms  library {stream['library_ms']:.3f} ms  "
-          f"bound {stream['bound_ms']:.4f} ms (bytes); scatter_add_3 with its stable sort "
-          f"{stream['with_sort_ms']:.3f} ms")
+    print_segsum(f"the {tuple(idx_s.shape)} clustered stream ->S={n}", stream)
+    print(f"  scatter_add_3 on that stream, with its stable sort: {stream['with_sort_ms']:.3f} ms")
     return timing, stream
 
 

@@ -26,7 +26,19 @@ from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import (
     nn_cluster_plain,
     select_chunks,
 )
-from active_3d_vision_and_touch_tpu_torch.ops.segsum import segment_sum_plain
+from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
+    segment_accumulate_sorted,
+    segment_sum_plain,
+)
+from active_3d_vision_and_touch_tpu_torch.testing import (
+    NN_SHAPES,
+    NN_TIE_CASES,
+    SEGSUM_CASES,
+    first_argmin,
+    nn_shape_case,
+    nn_tie_case,
+    segsum_case,
+)
 
 
 @pytest.fixture
@@ -108,6 +120,49 @@ def test_segsum_kernel_matches_plain_on_card(cuda_device):
     scale = segment_sum_plain(it, vt.abs(), s)
     assert bool(((out - ref).abs() <= 1e-5 * (1 + scale)).all())
     assert SEGSUM.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", NN_SHAPES, ids=lambda v: str(v))
+def test_nn_kernel_matches_plain_at_tile_edges_on_card(cuda_device, n, m):
+    """K1 at sizes on and beside its tiles (512 queries a block, 1024 refs a
+    tile, groups of eight refs): tolerance 0 on distance and index."""
+    x, y = (torch.from_numpy(a).to(cuda_device) for a in nn_shape_case(n, m))
+    d, i = min_dists(x, y)
+    d_p, i_p = min_dists_plain(x, y)
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(NN_TIE_CASES))
+def test_nn_kernel_first_index_wins_placed_ties_on_card(cuda_device, name):
+    """K1 on equal minima in one load of four refs, in the next load, in the
+    next group of eight, in neighbouring tiles and two tiles later: ``numpy.argmin``'s first
+    index and its distance, bit for bit."""
+    x, y = nn_tie_case(name)
+    d, i = min_dists(torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device))
+    d_ref, i_ref = first_argmin(x, y)
+    np.testing.assert_array_equal(i.cpu().numpy(), i_ref)
+    np.testing.assert_array_equal(d.cpu().numpy(), d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEGSUM_CASES)
+def test_segsum_kernel_matches_plain_on_run_shapes_on_card(cuda_device, name):
+    """K2 on run lengths around its one-thread / one-warp threshold (8
+    entries) and its slabs (1024 entries), short runs that straddle a slab's
+    end, a slab packed with 9-entry runs, rows with nothing to sum and
+    unaligned stream lengths:
+    within 1e-5 * (1 + Σ|v| of the segment) of the plain version, exactly 0
+    where no entry lands, and bit-equal between two runs."""
+    idx, vals, s = segsum_case(name)
+    it, vt = torch.from_numpy(idx).to(cuda_device), torch.from_numpy(vals).to(cuda_device)
+    out = segment_accumulate_sorted(it, vt, s)
+    ref = segment_sum_plain(it, vt, s)
+    scale = segment_sum_plain(it, vt.abs(), s)
+    assert bool(((out - ref).abs() <= 1e-5 * (1 + scale)).all())
+    assert not out[scale == 0].any()
+    assert torch.equal(out, segment_accumulate_sorted(it, vt, s))
 
 
 def _sorted_frames(x, y, device, pad_y=256):
