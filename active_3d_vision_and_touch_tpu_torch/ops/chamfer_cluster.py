@@ -17,8 +17,12 @@ module prunes that sweep with spatial locality:
    the kernel, so pruning can only change *which* neighbour is found, never
    the arithmetic of the value or the gradient.
 
-The sorts and the tile selection are torch ops, as they are XLA ops in the
-JAX package.  The search is not exact in the worst case (a true neighbour
+The sorts, the chunk centres and radii and the tile centroids are torch ops,
+as they are XLA ops in the JAX package.  The tile selection of step 2, which
+the JAX package leaves to XLA to fuse under ``lax.map``, is the kernel
+``csrc/select_chunks.cu`` (:data:`SELECT_CHUNKS`) on a CUDA tensor and
+:func:`select_chunks_plain`, the same selection as torch ops, on a CPU
+tensor.  The search is not exact in the worst case (a true neighbour
 in a chunk the tile did not select is missed): it is the training-loss
 accelerator, and :func:`ops.chamfer.chamfer_distance` stays the scorer.
 """
@@ -45,6 +49,12 @@ NN_CLUSTER = CudaKernel(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 
+SELECT_CHUNKS = CudaKernel(
+    "select_chunks.cu",
+    "select_chunks_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+
 _TN = 256  # queries per tile
 
 # Tile-selection knobs, the JAX package's values.  ``_CAND_FACTOR * T`` is
@@ -53,7 +63,8 @@ _TN = 256  # queries per tile
 _VOTE_STRIDE = 1
 _CAND_FACTOR = 3
 
-_MAX_CHUNK = 1024  # the kernel stages whole chunks through a 1024-point tile
+_MAX_TABLE_ROW = 8192  # the scan holds a tile's chunk ids in shared memory
+_MAX_SELECT_SHARED = 227 * 1024  # bytes of shared memory a block can use
 _SELECT_CHUNK_ELEMS = 1 << 26  # (B, tiles, TN, K) bound block of the selection
 _PLAIN_CHUNK_ELEMS = 1 << 25  # (B, tiles, TN, T*S) distance block, plain version
 
@@ -127,33 +138,36 @@ def _bound(points: torch.Tensor, centres: torch.Tensor, radii: torch.Tensor) -> 
     return torch.sqrt(sq) - radii[..., None, :]
 
 
-def select_chunks(
+def _selection_stats(
+    xs: torch.Tensor, ys: torch.Tensor, chunk_size: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the selection reads beside the queries: the chunk centres
+    (yd, C, 3) and radii (yd, C) of the refs and the tile centroids
+    (B, n_tiles, 3) of the queries.  Reductions, left to the library on
+    every device, in a fixed order: the kernel and the plain version call
+    this on the same inputs and so start from the same bits."""
+    yd = ys.shape[0]
+    y_chunks = ys.reshape(yd, ys.shape[1] // chunk_size, chunk_size, 3)
+    chunk_c = y_chunks.mean(dim=2)  # (yd, C, 3)
+    chunk_r = torch.sqrt(
+        ((y_chunks - chunk_c[:, :, None, :]) ** 2).sum(dim=-1).amax(dim=2)
+    )  # (yd, C)
+    tile_c = xs.reshape(xs.shape[0], xs.shape[1] // _TN, _TN, 3).mean(dim=2)
+    return chunk_c, chunk_r, tile_c
+
+
+def select_chunks_plain(
     xs: torch.Tensor, ys: torch.Tensor, chunk_size: int, chunks_per_tile: int
 ) -> torch.Tensor:
-    """The chunk table: for every tile of ``_TN`` sorted queries the ids of
-    the ``T = min(chunks_per_tile, C)`` reference chunks it scans, in
-    descending score order → (B, n_tiles, T) int32.
-
-    xs (B, Np, 3) and ys (yd, C*S, 3) are Morton-sorted and padded; row b
-    of xs is searched in row ``b % yd`` of ys.  A tile of sorted queries can
-    straddle a Z-curve discontinuity, so the tile's centroid alone misses
-    the minority side.  Instead 8 anchor queries spread over the tile rank
-    all chunks by their least bound and keep the best ``3 T`` as candidates;
-    every query then votes for its 3 best candidates (three passes of argmin
-    and mask), and the tile takes the ``T`` most-voted, ties going to the
-    chunk nearer the tile's centroid and then to the lower position.  Tiles
-    are independent and are processed in groups that bound the temporaries.
-    """
+    """Plain version of :func:`select_chunks`, as torch ops on any device,
+    from the same :func:`_selection_stats`.  Tiles are independent and are
+    processed in groups that bound the temporaries."""
     b, np_, _ = xs.shape
     yd = ys.shape[0]
     c = ys.shape[1] // chunk_size
     n_tiles = np_ // _TN
     t_sel = min(chunks_per_tile, c)
-    y_chunks = ys.reshape(yd, c, chunk_size, 3)
-    chunk_c = y_chunks.mean(dim=2)  # (yd, C, 3)
-    chunk_r = torch.sqrt(
-        ((y_chunks - chunk_c[:, :, None, :]) ** 2).sum(dim=-1).amax(dim=2)
-    )  # (yd, C)
+    chunk_c, chunk_r, tile_c_all = _selection_stats(xs, ys, chunk_size)
     reps = b // yd
     if reps > 1:
         chunk_c = chunk_c.repeat(reps, 1, 1)
@@ -186,7 +200,7 @@ def select_chunks(
             best = q_bound.argmin(dim=-1)  # first index of the least bound
             votes.scatter_add_(2, best, torch.ones_like(best, dtype=torch.float32))
             q_bound.scatter_(3, best[..., None], float("inf"))
-        tile_c = x_full.mean(dim=2, keepdim=True)  # (B, g, 1, 3)
+        tile_c = tile_c_all[:, t0 : t0 + g, None]  # (B, g, 1, 3)
         tile_bound = _bound(tile_c, cc, cr)[:, :, 0]  # (B, g, K)
         score = votes + 1.0 / (1.0 + torch.clamp(tile_bound, min=0.0))
         # the t_sel highest scores, the lower position first among equals
@@ -195,6 +209,74 @@ def select_chunks(
             ids = torch.gather(cand, 2, ids)
         out.append(ids)
     return torch.cat(out, dim=1).to(torch.int32)
+
+
+def _select_chunks_cuda(
+    xs: torch.Tensor, chunk_c: torch.Tensor, chunk_r: torch.Tensor,
+    tile_c: torch.Tensor, t_sel: int,
+) -> torch.Tensor:
+    check_cuda_tensor("xs", xs, torch.float32, 3)
+    check_cuda_tensor("chunk_c", chunk_c, torch.float32, 3)
+    check_cuda_tensor("chunk_r", chunk_r, torch.float32, 2)
+    check_cuda_tensor("tile_c", tile_c, torch.float32, 3)
+    b, np_, _ = xs.shape
+    yd, c, _ = chunk_c.shape
+    n_tiles = np_ // _TN
+    k_cand = min(_CAND_FACTOR * t_sel, c)
+    if (
+        xs.shape[2] != 3 or np_ % _TN or chunk_c.shape[2] != 3
+        or chunk_r.shape != (yd, c) or tile_c.shape != (b, n_tiles, 3)
+        or len({xs.device, chunk_c.device, chunk_r.device, tile_c.device}) != 1
+    ):
+        raise ValueError(
+            f"xs {tuple(xs.shape)}, chunk_c {tuple(chunk_c.shape)}, chunk_r "
+            f"{tuple(chunk_r.shape)}, tile_c {tuple(tile_c.shape)}: expected "
+            f"(B, k*{_TN}, 3), (yd, C, 3), (yd, C) and (B, k, 3) on one device"
+        )
+    shared = 24 * k_cand + 4 * max(c, k_cand)
+    if (
+        yd == 0 or b % yd or not 1 <= t_sel <= c or b > 65535
+        or shared > _MAX_SELECT_SHARED or b * np_ * 3 >= 2**31
+        or b * n_tiles * t_sel >= 2**31
+    ):
+        raise ValueError(
+            f"chunk selection: unsupported shape B={b}, Np={np_}, yd={yd}, C={c}, T={t_sel}"
+        )
+    out = torch.empty(b, n_tiles, t_sel, device=xs.device, dtype=torch.int32)
+    SELECT_CHUNKS.launch(
+        xs.data_ptr(), chunk_c.data_ptr(), chunk_r.data_ptr(), tile_c.data_ptr(),
+        out.data_ptr(), b, np_, yd, c, t_sel, k_cand, current_stream(xs),
+    )
+    return out
+
+
+def select_chunks(
+    xs: torch.Tensor, ys: torch.Tensor, chunk_size: int, chunks_per_tile: int
+) -> torch.Tensor:
+    """The chunk table: for every tile of ``_TN`` sorted queries the ids of
+    the ``T = min(chunks_per_tile, C)`` reference chunks it scans, in
+    descending score order → (B, n_tiles, T) int32.
+
+    xs (B, Np, 3) and ys (yd, C*S, 3) are Morton-sorted and padded; row b
+    of xs is searched in row ``b % yd`` of ys.  A tile of sorted queries can
+    straddle a Z-curve discontinuity, so the tile's centroid alone misses
+    the minority side.  Instead 8 anchor queries spread over the tile rank
+    all chunks by their least bound and keep the best ``3 T`` as candidates;
+    every query then votes for its 3 best candidates (three passes of argmin
+    and mask), and the tile takes the ``T`` most-voted, ties going to the
+    chunk nearer the tile's centroid and then to the lower position.  A CUDA
+    tensor goes through the kernel, which takes the chunk centres and radii
+    and the tile centroids from torch ops; a CPU tensor goes through the
+    plain version.
+    """
+    if xs.device.type == "cpu":
+        return select_chunks_plain(xs, ys, chunk_size, chunks_per_tile)
+    chunk_c, chunk_r, tile_c = _selection_stats(xs, ys, chunk_size)
+    t_sel = min(chunks_per_tile, ys.shape[1] // chunk_size)
+    return _select_chunks_cuda(
+        xs.contiguous(), chunk_c.contiguous(), chunk_r.contiguous(),
+        tile_c.contiguous(), t_sel,
+    )
 
 
 def nn_cluster_plain(
@@ -259,8 +341,8 @@ def _nn_cluster_cuda(
             f"(B, k*{_TN}, 3), (yd, C*{chunk_size}, 3) and (B, k, T) on one device"
         )
     if (
-        yd == 0 or b % yd or t == 0 or m == 0 or b > 65535
-        or not 1 <= chunk_size <= _MAX_CHUNK
+        yd == 0 or b % yd or m == 0 or b > 65535 or chunk_size < 1
+        or not 1 <= t <= _MAX_TABLE_ROW or t * chunk_size >= 2**31
         or max(b * np_, yd * m) * 3 >= 2**31 or chunk_ids.numel() >= 2**31
     ):
         raise ValueError(
@@ -285,7 +367,9 @@ def nn_cluster(
     (yd, C*S, 3), each tile of 256 queries over the chunks its row of
     chunk_ids (B, Np/256, T) int32 names → (B, Np) f32 distance and (B, Np)
     int32 index into the sorted refs.  A CUDA tensor goes through the
-    kernel, a CPU tensor through the plain version."""
+    kernel, which takes any S >= 1 and a table row of 1 <= T <= 8192 ids
+    (it holds the row in shared memory), a CPU tensor through the plain
+    version."""
     if xs.device.type == "cpu":
         return nn_cluster_plain(xs, ys, chunk_ids, chunk_size)
     return _nn_cluster_cuda(
@@ -308,7 +392,8 @@ def _nn_clustered_sorted(
     distinct clouds and the search folds the batch index with a modulo."""
     yd = y_distinct if y_distinct is not None else xs.shape[0]
     refs = ys[:yd]
-    chunk_ids = select_chunks(xs, refs, chunk_size, chunks_per_tile)
+    select = select_chunks_plain if plain else select_chunks
+    chunk_ids = select(xs, refs, chunk_size, chunks_per_tile)
     search = nn_cluster_plain if plain else nn_cluster
     return search(xs, refs, chunk_ids, chunk_size)
 
@@ -431,8 +516,8 @@ def chamfer_distance_clustered(
     plain: bool = False,
 ) -> torch.Tensor:
     """Symmetric Chamfer distance via the pruned NN search: x (B,N,3),
-    y (B,M,3) → (B,).  ``plain=True`` runs the plain versions of both
-    kernels on any device."""
+    y (B,M,3) → (B,).  ``plain=True`` runs the plain versions of all
+    three kernels (selection, scan, segment sum) on any device."""
     return _ChamferClustered.apply(x, y, chunk_size, chunks_per_tile, plain)
 
 

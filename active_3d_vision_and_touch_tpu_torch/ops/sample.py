@@ -8,8 +8,10 @@ Port of the JAX package's ``ops/sample.py``:
   come out monotone per row;
 - barycentric weights w0 = 1 - sqrt(u), w1 = sqrt(u)(1 - v), w2 = sqrt(u) v;
 - :class:`_Interpolate`, whose backward sums each face's run of the sorted
-  sample stream as a difference of prefix sums instead of scattering every
-  sample into the vertices.
+  sample stream with the sorted segment sum of :mod:`ops.segsum` (one launch
+  of its kernel on a CUDA tensor: the face ids are non-decreasing per row by
+  construction, so nothing is sorted), and only then adds the per-face sums
+  into the vertices, instead of scattering every sample.
 
 The random numbers are drawn apart from their use
 (:func:`draw_sample_noise`), so a test can hand the same numpy-made draws to
@@ -20,6 +22,8 @@ the same bits.
 from __future__ import annotations
 
 import torch
+
+from active_3d_vision_and_touch_tpu_torch.ops.segsum import segment_accumulate_sorted
 
 
 def face_areas(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
@@ -93,22 +97,17 @@ class _Interpolate(torch.autograd.Function):
         pts, idx, w, faces = ctx.saved_tensors
         b = g.shape[0]
         f = faces.shape[0]
-        # per face f and corner k: Σ_{i: idx_i = f} w_i[k] · g_i, as prefix
-        # sum differences at the run boundaries of the sorted idx
-        contrib = w[..., None] * g[:, :, None, :]  # (B, num, 3, 3)
-        prefix = torch.cumsum(contrib, dim=1)
-        prefix = torch.cat([torch.zeros_like(prefix[:, :1]), prefix], dim=1)
-        face_iota = torch.arange(f + 1, device=idx.device, dtype=idx.dtype)
-        bounds = torch.searchsorted(
-            idx.contiguous(), face_iota.expand(b, -1).contiguous(), side="left"
-        )  # (B, F+1)
-        take = lambda p, i: torch.gather(  # noqa: E731
-            p, 1, i[:, :, None, None].expand(-1, -1, 3, 3)
-        )
-        seg = take(prefix, bounds[:, 1:]) - take(prefix, bounds[:, :-1])  # (B, F, 3, 3)
+        # per face f and corner k: seg[k, b, f] = Σ_{i: idx_i = f} w_i[k] · g_i.
+        # idx is sorted per row, so this is a sorted segment sum; the three
+        # corners fold onto the batch, corner k in rows k*B .. (k+1)*B
+        num = idx.shape[1]
+        ids = idx.to(torch.int32).repeat(3, 1)  # (3B, num)
+        vals = (w.permute(2, 0, 1)[..., None] * g[None]).reshape(3 * b, num, 3)
+        seg = segment_accumulate_sorted(ids, vals.float().contiguous(), f)
+        seg = seg.to(g.dtype).reshape(3, b, f, 3)
         dverts = g.new_zeros(b, ctx.num_verts, 3)
         for k in range(3):
-            dverts.index_add_(1, faces[:, k], seg[:, :, k])
+            dverts.index_add_(1, faces[:, k], seg[k])
         dw = torch.sum(g[:, :, None, :] * pts, dim=-1)
         return dverts, None, dw, None
 

@@ -5,7 +5,10 @@ its contract: a stable joint sort of (ids, values) per row, then a sum over
 each run of equal ids of the sorted stream.  Ids outside ``[0, S)`` are
 dropped.  On a CUDA tensor the sorted sum is the hand-written kernel
 ``csrc/segsum_sorted.cu`` (:data:`SEGSUM`); on a CPU tensor it is the plain
-version beside it.  The chamfer backward (``ops/chamfer.py``) is the caller.
+version beside it.  The callers are the Chamfer backward (``ops/chamfer.py``,
+``ops/chamfer_cluster.py``) through :func:`scatter_add_3`, and the sampler's
+backward (``ops/sample.py``), whose face ids are already sorted, through
+:func:`segment_accumulate_sorted`.
 """
 
 from __future__ import annotations

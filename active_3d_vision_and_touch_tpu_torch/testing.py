@@ -11,7 +11,17 @@ a slab packed with 9-entry runs, rows with nothing to sum, and streams whose
 length is no multiple of four.  The nearest-neighbour kernel scans 1024-ref
 tiles in groups of 8 refs, loaded four at a time: clouds whose sizes fall on
 and beside the tiles, and exact ties within four refs, within and across
-groups and across tiles.  This module imports numpy only.
+groups and across tiles.  The pruned scan walks a list that a table names,
+in rounds of 1024 list positions and groups of 8, four positions a load when
+the chunk size allows: chunk sizes that do and do not divide a group, lists
+below, on and beyond a round, ties placed 1, 8 and one chunk apart and
+across chunks against the id order, a chunk listed twice, ids that name no
+chunk, and fewer ref rows than query rows.  The chunk selection ranks with
+ties: every chunk a candidate, more chunks asked for than there are, equal
+bounds, equal scores, a tile in two distant regions, and queries that are
+NaN.  The sampler's backward sums runs of sorted face ids: one face taking
+every sample, faces without samples, only the first and the last face, one
+sample.  This module imports numpy only.
 """
 
 from __future__ import annotations
@@ -146,3 +156,189 @@ def first_argmin(x: np.ndarray, y: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     full = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
     index = np.argmin(full, axis=-1)
     return np.take_along_axis(full, index[..., None], axis=-1)[..., 0], index.astype(np.int32)
+
+
+NN_CLUSTER_CASES = (
+    "s1", "s3", "s20", "s128", "round_below", "round_exact", "round_beyond",
+    "tie_1", "tie_8", "tie_s", "tie_table_order", "same_chunk_twice",
+    "invalid_ids", "yd_lt_b",
+)
+SELECT_CASES = (
+    "all_candidates", "t_ge_c", "equal_bounds", "equal_scores", "straddle",
+    "yd_lt_b", "nan_query",
+)
+INTERPOLATE_CASES = ("one_face", "empty_faces", "first_and_last_face", "num1")
+
+_TILE = 256  # queries per tile of the clustered search
+
+
+def _queries_on_refs(rng, ys: np.ndarray, b: int, n: int) -> np.ndarray:
+    """(b, n, 3) queries: each sits on a ref of row ``b % yd``, every other
+    one moved by about 1e-3."""
+    yd, m, _ = ys.shape
+    pick = rng.integers(0, m, (b, n))
+    xs = ys[np.arange(b)[:, None] % yd, pick]
+    noise = rng.normal(size=xs.shape).astype(np.float32) * np.float32(1e-3)
+    noise[:, ::2] = 0
+    return np.ascontiguousarray(xs + noise)
+
+
+def nn_cluster_case(name: str, seed: int = 0) -> dict:
+    """Inputs of the table-driven scan: ``xs (B, k*256, 3)``, ``ys (yd, C*S, 3)``
+    float32, ``ids (B, k, T)`` int32 and ``chunk`` = S.  The case
+    ``invalid_ids`` holds ids -1 and C, which name no chunk; its ``ys_valid``
+    and ``ids_valid`` say the same with one more chunk of +inf points, for a
+    version that needs every id to name a chunk."""
+    rng = np.random.default_rng(seed)
+    # b, yd, c, s, t, tiles
+    shapes = {
+        "s1": (2, 2, 40, 1, 7, 1), "s3": (2, 2, 50, 3, 11, 2), "s20": (2, 2, 30, 20, 13, 1),
+        "s128": (3, 3, 30, 128, 24, 2), "round_below": (2, 2, 12, 128, 7, 1),
+        "round_exact": (2, 2, 12, 128, 8, 1), "round_beyond": (2, 2, 12, 128, 9, 1),
+        "tie_1": (2, 2, 12, 16, 12, 2), "tie_8": (2, 2, 12, 16, 12, 2),
+        "tie_s": (2, 2, 12, 16, 12, 2), "tie_table_order": (2, 2, 12, 16, 12, 2),
+        "same_chunk_twice": (2, 2, 9, 32, 6, 2), "invalid_ids": (2, 2, 9, 20, 6, 2),
+        "yd_lt_b": (4, 2, 20, 64, 5, 1),
+    }
+    if name not in shapes:
+        raise ValueError(f"nn_cluster case {name!r}: expected one of {NN_CLUSTER_CASES}")
+    b, yd, c, s, t, tiles = shapes[name]
+    ys = rng.normal(size=(yd, c, s, 3)).astype(np.float32)
+    ids = np.stack([
+        np.stack([rng.permutation(c)[:t] for _ in range(tiles)]) for _ in range(b)
+    ]).astype(np.int32)
+    if name == "tie_1":  # a copy at the next position of the chunk
+        for o in (0, 3, 6, 7, 14):
+            ys[:, :, o + 1] = ys[:, :, o]
+    elif name == "tie_8":  # a copy 8 positions on: the next group of the list
+        for o in (0, 3, 7):
+            ys[:, :, o + 8] = ys[:, :, o]
+    elif name == "tie_s":
+        # chunk 2k+1 copies chunk 2k and stands next to it in the table, the
+        # higher id first in tile 0: equal points S list positions apart
+        ys[:, 1::2] = ys[:, 0::2]
+        ids[:, 0] = np.arange(c).reshape(-1, 2)[:, ::-1].reshape(-1)
+        ids[:, 1] = np.arange(c)
+    elif name == "tie_table_order":
+        # chunk k + C/2 copies chunk k; tile 0 lists the ids downwards, so the
+        # copy with the higher id stands first and has to win
+        ys[:, c // 2 :] = ys[:, : c // 2]
+        ids[:, 0] = np.arange(c)[::-1]
+    elif name == "same_chunk_twice":
+        ids[:, :, 3] = ids[:, :, 1]
+        ids[:, 1, 5] = ids[:, 1, 4]
+    ys = ys.reshape(yd, c * s, 3)
+    xs = _queries_on_refs(rng, ys, b, tiles * _TILE)
+    case = {"xs": xs, "ys": ys, "ids": ids, "chunk": s}
+    if name == "invalid_ids":
+        valid = ids.copy()
+        ids[:, :, 0] = -1
+        ids[:, 1, 2] = c
+        ids[1, 0, 5] = c + 7
+        valid[(ids < 0) | (ids >= c)] = c
+        case["ids_valid"] = valid
+        case["ys_valid"] = np.concatenate(
+            [ys, np.full((yd, s, 3), np.inf, np.float32)], axis=1)
+    return case
+
+
+def cluster_first_argmin(xs, ys, ids, chunk: int) -> tuple[np.ndarray, np.ndarray]:
+    """The table-driven scan by numpy: per tile the list of its T chunks in
+    table order, float32 distances ((dx² + dy²) + dz²), the first list
+    position of the least one, (1e30, 0) where none is below 1e30.  An id
+    outside [0, C) names a chunk of +inf points."""
+    b, n, _ = xs.shape
+    yd = ys.shape[0]
+    c = ys.shape[1] // chunk
+    dist = np.empty((b, n), np.float32)
+    index = np.empty((b, n), np.int32)
+    padded = np.concatenate([ys, np.full((yd, chunk, 3), np.inf, np.float32)], axis=1)
+    for row in range(b):
+        for tile in range(n // _TILE):
+            row_ids = ids[row, tile].astype(np.int64)
+            listed = np.where((row_ids >= 0) & (row_ids < c), row_ids, c)
+            at = (listed[:, None] * chunk + np.arange(chunk)).reshape(-1)
+            q = slice(tile * _TILE, (tile + 1) * _TILE)
+            with np.errstate(invalid="ignore"):
+                d, pos = first_argmin(xs[row : row + 1, q], padded[row % yd][None, at])
+            found = d[0] < np.float32(1e30)
+            dist[row, q] = np.where(found, d[0], np.float32(1e30))
+            index[row, q] = np.where(found, at[pos[0]], 0)
+    return dist, index
+
+
+def select_case(name: str, seed: int = 0) -> dict:
+    """Inputs of the chunk selection: ``xs (B, k*256, 3)``, ``ys (yd, C*S, 3)``
+    float32, ``chunk`` = S and ``chunks_per_tile`` = T."""
+    rng = np.random.default_rng(seed)
+    # b, yd, c, s, t, tiles
+    shapes = {
+        "all_candidates": (2, 2, 10, 16, 4, 2), "t_ge_c": (2, 2, 6, 16, 8, 2),
+        "equal_bounds": (2, 2, 40, 16, 5, 2), "equal_scores": (2, 2, 30, 16, 4, 2),
+        "straddle": (2, 2, 60, 32, 6, 2), "yd_lt_b": (6, 2, 50, 16, 5, 1),
+        "nan_query": (2, 2, 40, 16, 5, 3),
+    }
+    if name not in shapes:
+        raise ValueError(f"selection case {name!r}: expected one of {SELECT_CASES}")
+    b, yd, c, s, t, tiles = shapes[name]
+    # chunks are small clusters around spread centres, as sorted clouds give
+    centres = rng.normal(size=(yd, c, 1, 3)).astype(np.float32)
+    ys = centres + rng.normal(size=(yd, c, s, 3)).astype(np.float32) * np.float32(0.05)
+    if name == "equal_bounds":
+        ys[:, 7] = ys[:, 3]  # two chunks of equal points: equal bounds, votes and scores
+        ys[:, 31] = ys[:, 12]
+    elif name == "equal_scores":
+        ys[:] = ys[:, :1]  # every chunk the same
+    ys = np.ascontiguousarray(ys.reshape(yd, c * s, 3))
+    xs = _queries_on_refs(rng, ys, b, tiles * _TILE)
+    if name == "straddle":
+        # tile 0: the first half of the queries around chunk 2, the second
+        # half around chunk 50, far away on the other side of the cloud
+        half = _TILE // 2
+        for row in range(b):
+            near = ys[row % yd].reshape(c, s, 3)
+            xs[row, :half] = near[2, rng.integers(0, s, half)] + np.float32(0.01)
+            xs[row, half:_TILE] = near[50, rng.integers(0, s, half)] - np.float32(0.01)
+    elif name == "nan_query":
+        xs[0, 5] = np.nan  # tile 0: a voter that is no anchor
+        xs[1, _TILE + 32, 1] = np.nan  # tile 1 of row 1: an anchor
+        xs[1, 2 * _TILE + 77, 0] = np.inf  # tile 2: an infinite coordinate
+    return {"xs": xs, "ys": ys, "chunk": s, "chunks_per_tile": t}
+
+
+def interpolate_case(name: str, seed: int = 0) -> dict:
+    """Inputs of the sampler's interpolation and its backward: ``verts
+    (B, V, 3)``, ``faces (F, 3)`` int64, per-row sorted ``idx (B, num)`` int64,
+    weights ``w (B, num, 3)`` and the cotangent ``g (B, num, 3)``."""
+    rng = np.random.default_rng(seed)
+    b, v, f = 2, 30, 50
+    num = 1 if name == "num1" else 400
+    if name == "one_face":
+        idx = np.full((b, num), 17)
+    elif name == "empty_faces":
+        idx = np.sort(rng.choice([3, 4, 20, 41], size=(b, num)), axis=1)
+    elif name == "first_and_last_face":
+        idx = np.sort(rng.choice([0, f - 1], size=(b, num)), axis=1)
+    elif name == "num1":
+        idx = np.array([[0], [f - 1]])
+    else:
+        raise ValueError(f"interpolate case {name!r}: expected one of {INTERPOLATE_CASES}")
+    return {
+        "verts": rng.normal(size=(b, v, 3)).astype(np.float32),
+        "faces": rng.integers(0, v, size=(f, 3)).astype(np.int64),
+        "idx": idx.astype(np.int64),
+        "w": rng.uniform(size=(b, num, 3)).astype(np.float32),
+        "g": rng.normal(size=(b, num, 3)).astype(np.float32),
+    }
+
+
+def interpolate_backward_float64(case: dict) -> np.ndarray:
+    """The vertex cotangent of the interpolation as a float64 sum:
+    dverts[b, faces[idx_i, k]] += w_i[k] · g_i."""
+    verts, faces, idx, w, g = (case[k] for k in ("verts", "faces", "idx", "w", "g"))
+    out = np.zeros(verts.shape, np.float64)
+    for row in range(verts.shape[0]):
+        for k in range(3):
+            np.add.at(out[row], faces[idx[row], k],
+                      w[row, :, k, None].astype(np.float64) * g[row].astype(np.float64))
+    return out

@@ -13,14 +13,17 @@ package, and runs these phases in order; any failure exits non-zero:
    nearest-neighbour kernel's scan loop as built (``cuobjdump -sass``);
 3. kernels against their plain PyTorch versions on the card, at test shapes
    (the seeded cases of the package's ``testing`` module: tile edges, placed
-   ties, run shapes) and at the shapes the train step gives them, each with
-   its stated tolerance; the segment sum twice on one input, bit-equal; the
-   clustered search against the exact one, its oracle; then CUDA-event
-   timings (median of repeated launches) of each kernel, its plain version
-   and, where one exists, a single PyTorch call computing the same
-   function, and of the clustered search's torch-op prep; the segment sum
-   must be no slower than ``scatter_add_`` by the device's time (replays of
-   a CUDA graph of 20 launches);
+   ties, run shapes, chunk sizes, table rows, selections with ties and NaNs)
+   and at the shapes the train step gives them, each with its stated
+   tolerance; the segment sum twice on one input, bit-equal; the clustered
+   search against the exact one, its oracle; then CUDA-event timings (median
+   of repeated launches) of each kernel, its plain version and, where one
+   exists, a single PyTorch call computing the same function, and of the
+   clustered search's prep; the segment sum must be no slower than
+   ``scatter_add_`` by the device's time (replays of a CUDA graph of 20
+   launches) and the chunk selection no slower than its torch-op version;
+   the segment sum on the sampler backward's streams (the vision step's,
+   the touch step's, and one face taking every sample);
 4. the main paths at full width, each taking 1 warm-up and 3 train steps
    and 1 eval step from random weights made from the seed, with every
    launch counter set to 0 just before and read just after, and each kernel
@@ -30,10 +33,16 @@ package, and runs these phases in order; any failure exits non-zero:
    left at its default ``"clustered"``, and ``TouchEngine`` on its default
    configuration (batch 64, 121x121 images, 4000 samples);
 5. the outputs: the full-width losses with the kernels against the same
-   step on the plain versions, the clustered Chamfer on the kernels against
-   the same on the plain versions and against the exact loss, and small
-   configurations on the card against the same ones on the CPU;
-6. a profile of one train step of each path: device time by kernel;
+   step on the plain versions (the sampler's backward included), the
+   sampler's backward alone at the step's shapes, the clustered Chamfer on
+   the kernels against the same on the plain versions and against the exact
+   loss, and small configurations on the card against the same ones on the
+   CPU;
+6. a profile of one train step of each path beside the same step without
+   the profiler: device time by kernel, the host's time in the launch calls
+   and the time it waits for the card; no
+   outer-dimension scan (a ``cumsum`` over the sample axis, which the
+   sampler's backward has no need of) may be among them;
 7. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -53,23 +62,42 @@ import torch
 from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, touch_chart, vision_charts
 from active_3d_vision_and_touch_tpu_torch.core.config import TouchConfig, VisionConfig
 from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
-from active_3d_vision_and_touch_tpu_torch.ops import KERNELS, NN_CLUSTER, NN_EXACT, SEGSUM
+from active_3d_vision_and_touch_tpu_torch.ops import (
+    KERNELS,
+    NN_CLUSTER,
+    NN_EXACT,
+    SEGSUM,
+    SELECT_CHUNKS,
+)
 from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
+from active_3d_vision_and_touch_tpu_torch.ops import sample as sampler
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all, nvcc_path
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import min_dists, min_dists_plain
-from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample, draw_sample_noise
+from active_3d_vision_and_touch_tpu_torch.ops.sample import (
+    batch_sample,
+    draw_sample_noise,
+    sample_faces,
+)
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
     scatter_add_3,
     segment_accumulate_sorted,
     segment_sum_plain,
 )
 from active_3d_vision_and_touch_tpu_torch.testing import (
+    INTERPOLATE_CASES,
+    NN_CLUSTER_CASES,
     NN_SHAPES,
     NN_TIE_CASES,
     SEGSUM_CASES,
+    SELECT_CASES,
+    cluster_first_argmin,
+    interpolate_backward_float64,
+    interpolate_case,
+    nn_cluster_case,
     nn_shape_case,
     nn_tie_case,
     segsum_case,
+    select_case,
 )
 from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
@@ -94,6 +122,10 @@ MIN_AGREEMENT = 0.90
 # They are printed as met or missed and fail nothing: a card set to a lower
 # limit runs slower.  What is checked is relative, within one run
 K1_TARGET_MS = {"(48, 30000)x30000": 16.0, "the touch shape (192, 4000)x4000": 1.25}
+# the same for K3, either way, and for the chunk selection of one loss (both
+# directions, with the torch ops that feed the kernel)
+K3_TARGET_MS = 1.50
+SELECT_TARGET_MS = 2.0
 SM_LANES = 132 * 128  # an H100 SXM: 132 SMs, each issuing for 4 x 32 lanes a clock
 EXPERIMENTS = str(ROOT / "build" / "chip_smoke")
 
@@ -213,7 +245,8 @@ def phase_build() -> None:
         spills = [ln for ln in used if "spill" in ln]
         check(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
               f"{k.name}: ptxas reports register spills")
-    print(f"  {NN_EXACT.name} scan loop as built: {sass_inner_loop(NN_EXACT)}")
+    for k in (NN_EXACT, NN_CLUSTER):
+        print(f"  {k.name} scan loop as built: {sass_inner_loop(k)}")
 
 
 def sass_inner_loop(kernel) -> str:
@@ -278,6 +311,18 @@ def check_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int, label: str,
     return err
 
 
+def time_ms_and_clock(fn, reps: int = 20, inner: int = 1) -> tuple[float, int]:
+    """:func:`time_ms` of ``fn`` and the SM clock in MHz that ``nvidia-smi``
+    reads while the launches run.  The query takes longer than a few short
+    launches, so a short ``fn`` is given an ``inner`` that keeps the card
+    busy for some tens of milliseconds."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    ms = time_ms(fn, reps, inner)
+    return ms, int(smi.communicate(timeout=60)[0].split()[0])
+
+
 def time_nn(x: torch.Tensor, y: torch.Tensor, plain_reps: int) -> dict:
     """K1's times at one shape beside its two bounds."""
     b, n, m = x.shape[0], x.shape[1], y.shape[1]
@@ -285,11 +330,7 @@ def time_nn(x: torch.Tensor, y: torch.Tensor, plain_reps: int) -> dict:
     # peak, which counts an FMA as two; none of the nine fuses, so at one
     # instruction a lane a clock the issue bound is twice that
     bound_ms = 9.0 * b * n * m / PEAK_FP32_OPS * 1e3
-    smi = subprocess.Popen(  # reads the SM clock while the launches run
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-        stdout=subprocess.PIPE, text=True)
-    ms = time_ms(lambda: min_dists(x, y), 20)
-    sm_mhz = int(smi.communicate(timeout=60)[0].split()[0])
+    ms, sm_mhz = time_ms_and_clock(lambda: min_dists(x, y))
     return {
         "ms": ms,
         "sm_clock_mhz": sm_mhz,
@@ -337,7 +378,7 @@ def print_nn(label: str, t: dict) -> None:
 
 
 def print_segsum(label: str, t: dict) -> None:
-    """Prints K2's times and requires the kernel to be no slower than
+    """Prints K2's times and fails unless the kernel is no slower than
     ``scatter_add_`` by the device's time (graph replays): the single and
     batched readings hold the host's enqueue time and are only printed."""
     print(f"  segsum_sorted at {label}: kernel {t['ms']:.4f} ms single, {t['ms_batched']:.4f} ms "
@@ -439,17 +480,41 @@ def phase_kernels(dev: torch.device) -> dict:
     return timing
 
 
-def check_cluster(xs, ys, ids, chunk: int, label: str) -> float:
+def check_cluster(xs, ys, ids, chunk: int, label: str, plain_ys=None, plain_ids=None) -> float:
     """K3 against its plain version: tolerance 0 on distance and index
-    (same rounding, same scan order, same tie rule)."""
+    (same rounding, same scan order, same tie rule).  The plain version
+    needs every id to name a chunk; ``plain_ys`` and ``plain_ids`` hand it
+    other inputs for the same function, in which an id that names no chunk
+    names one more chunk of +inf points.  For such a case the check on the
+    kernel's own inputs is the numpy scan that the caller holds it against."""
     d, i = cluster.nn_cluster(xs, ys, ids, chunk)
-    d_p, i_p = cluster.nn_cluster_plain(xs, ys, ids, chunk)
+    d_p, i_p = cluster.nn_cluster_plain(
+        xs, ys if plain_ys is None else plain_ys, ids if plain_ids is None else plain_ids, chunk)
     err = float((d - d_p).abs().max())
     mismatch = int((i != i_p).sum())
     print(f"  nn_cluster {label} xs {tuple(xs.shape[:2])} refs {tuple(ys.shape[:2])} "
           f"table {tuple(ids.shape)} S={chunk}: max_abs_err {err} index mismatches {mismatch}")
     check(err == 0.0 and mismatch == 0, f"nn_cluster disagrees with its plain version at {label}")
     return err
+
+
+def check_select(xs, ys, chunk: int, per_tile: int, label: str) -> tuple[torch.Tensor, float]:
+    """The selection kernel against its plain version, which start from
+    the same chunk centres, radii and tile centroids: the tables equal
+    index for index.  Returns the kernel's table and the largest difference
+    between two ids that stand at the same place."""
+    ids = cluster.select_chunks(xs, ys, chunk, per_tile)
+    ids_p = cluster.select_chunks_plain(xs, ys, chunk, per_tile)
+    check(ids.dtype == torch.int32 and ids.shape == ids_p.shape,
+          f"select_chunks: table {tuple(ids.shape)} {ids.dtype} at {label}")
+    mismatch = int((ids != ids_p).sum())
+    err = float((ids.long() - ids_p.long()).abs().max())
+    c = ys.shape[1] // chunk
+    print(f"  select_chunks {label} xs {tuple(xs.shape[:2])} refs {tuple(ys.shape[:2])} S={chunk} "
+          f"-> table {tuple(ids.shape)}: max_abs_err {err} index mismatches {mismatch}")
+    check(err == 0.0 and mismatch == 0, f"select_chunks disagrees with its plain version at {label}")
+    check(int(ids.min()) >= 0 and int(ids.max()) < c, f"select_chunks: id outside [0, C) at {label}")
+    return ids, err
 
 
 def check_against_exact(xs, ys_tiled, i_sorted, label: str) -> float:
@@ -466,11 +531,57 @@ def check_against_exact(xs, ys_tiled, i_sorted, label: str) -> float:
     return agree
 
 
-def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
-    """K3 against its plain version and against K1, then its timings and
-    the prep's at the clustered train step's shapes.  Returns K3's numbers
-    and K2's on the clustered backward's stream."""
+def time_select(xs_p, ys1_p, ys_p, tiles: int) -> dict:
+    """The selection kernel's times beside its plain version's and its
+    bounds, at the train step's shapes: one launch x->y (48 rows against 16
+    distinct gt clouds), one y->x, and both directions through the
+    dispatcher, the torch ops that make the centres, radii and centroids
+    included."""
+    c = ys1_p.shape[1] // CHUNK
+    t_sel = min(CHUNKS_PER_TILE, c)
+    k_cand = min(cluster._CAND_FACTOR * t_sel, c)
+    both = lambda select: (  # noqa: E731
+        select(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE), select(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE))
+    stats1 = tuple(t.contiguous() for t in cluster._selection_stats(xs_p, ys1_p, CHUNK))
+    stats2 = tuple(t.contiguous() for t in cluster._selection_stats(ys_p, xs_p, CHUNK))
+    ms, sm_mhz = time_ms_and_clock(
+        lambda: cluster._select_chunks_cuda(xs_p, *stats1, t_sel), 10, inner=20)
+    # per tile: 8 C anchor bounds if there is a candidate stage, 256 K voter
+    # bounds and K centroid bounds, each 3 sub, 3 mul, 2 add, a square root
+    # and a subtraction; the three argmin passes compare 3 x 256 x K values.
+    # Over the FP32 peak (which counts an FMA as two, and none of these
+    # fuses, so at one instruction a lane a clock the issue bound is twice
+    # that, at the clock read meanwhile).  The rankings, the ordering keys
+    # and the square root's own instructions are the kernel's choices and
+    # are not counted.
+    bounds = (8 * c if k_cand < c else 0) + 257 * k_cand
+    ops = tiles * (10.0 * bounds + 3 * 256 * k_cand)
+    moved = (xs_p.numel() + sum(t.numel() for t in stats1) + tiles * t_sel) * 4
+    return {
+        "ms": ms,
+        "sm_clock_mhz": sm_mhz,
+        "ms_y_to_x": time_ms(lambda: cluster._select_chunks_cuda(ys_p, *stats2, t_sel), 10, inner=20),
+        "both_directions_ms": time_ms(lambda: both(cluster.select_chunks), 10, inner=5),
+        "stats_both_directions_ms": time_ms(lambda: (
+            cluster._selection_stats(xs_p, ys1_p, CHUNK),
+            cluster._selection_stats(ys_p, xs_p, CHUNK)), 10, inner=5),
+        "plain_ms": time_ms(
+            lambda: cluster.select_chunks_plain(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE), 3),
+        "plain_both_directions_ms": time_ms(lambda: both(cluster.select_chunks_plain), 3),
+        "library_ms": None,  # no single PyTorch call ranks, votes and selects per tile
+        "bound_ms": max(ops / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
+        "bound_by": "operations" if ops / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
+        "issue_bound_ms": ops / (SM_LANES * sm_mhz * 1e6) * 1e3,
+    }
+
+
+def phase_cluster(dev: torch.device) -> tuple[dict, dict, dict]:
+    """K3 and the selection kernel against their plain versions and K3
+    against K1, then their timings and the prep's at the clustered train
+    step's shapes.  Returns K3's numbers, the selection kernel's, and K2's
+    on the clustered backward's stream."""
     g = torch.Generator(device=dev).manual_seed(1)
+    on_card = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     err = 0.0
     # small surface case: S 64, T 16 of 18 chunks
     pts = surface_clouds(2, 1024 + 1100, g, dev)  # in face order: shuffle, then split
@@ -478,7 +589,8 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
     x, y = pts[:, :1024], pts[:, 1024:] * 1.01
     xs = cluster._edge_pad_points(cluster._sort_by_morton(x)[0], 256).contiguous()
     ys = cluster._edge_pad_points(cluster._sort_by_morton(y)[0], 64).contiguous()
-    err = max(err, check_cluster(xs, ys, cluster.select_chunks(xs, ys, 64, 16), 64, "surface"))
+    ids, select_err = check_select(xs, ys, 64, 16, "surface")
+    err = max(err, check_cluster(xs, ys, ids, 64, "surface"))
     # ties: 5 distinct chunks of lattice points, each 4 times, listed in an
     # order that is not the index order; queries sit on lattice points, so
     # equal distances occur inside a chunk and across chunks
@@ -487,6 +599,25 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
     queries = torch.randint(-3, 4, (2, 512, 3), device=dev, generator=g).float()
     table = torch.tensor([17, 2, 12, 7, 9, 4, 0], dtype=torch.int32, device=dev)
     err = max(err, check_cluster(queries, refs, table.expand(2, 2, -1).contiguous(), 32, "ties"))
+    # chunk sizes that do and do not divide a group of eight list positions
+    # or a load of four, lists below, on and beyond a staging round, placed
+    # ties, a chunk listed twice, ids that name no chunk, folded ref rows
+    for name in NN_CLUSTER_CASES:
+        case = nn_cluster_case(name)
+        args = on_card(case["xs"]), on_card(case["ys"]), on_card(case["ids"]), case["chunk"]
+        err = max(err, check_cluster(
+            *args, name, plain_ys=on_card(case["ys_valid"]) if "ys_valid" in case else None,
+            plain_ids=on_card(case["ids_valid"]) if "ids_valid" in case else None))
+        d_ref, i_ref = cluster_first_argmin(case["xs"], case["ys"], case["ids"], case["chunk"])
+        d, i = (t.cpu().numpy() for t in cluster.nn_cluster(*args))
+        check(bool((d == d_ref).all() and (i == i_ref).all()),
+              f"nn_cluster disagrees with the numpy scan at {name}")
+    # selections: every chunk a candidate, T >= C, equal bounds, equal
+    # scores, a tile in two regions, folded ref rows, NaN and infinite queries
+    for name in SELECT_CASES:
+        case = select_case(name)
+        select_err = max(select_err, check_select(
+            on_card(case["xs"]), on_card(case["ys"]), case["chunk"], case["chunks_per_tile"], name)[1])
 
     # the clustered train step's inputs: 48 folded prediction clouds sampled
     # from the initial atlas against 16 distinct surface-like gt clouds
@@ -509,7 +640,10 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
         ids2 = cluster.select_chunks(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE)
         return xs_p, ys1_p, ys_p, ids1, ids2
 
-    xs_p, ys1_p, ys_p, ids1, ids2 = prep()
+    xs_p, ys1_p, ys_p, _, _ = prep()
+    ids1, err1 = check_select(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE, "train-step x->y (y_distinct 16)")
+    ids2, err2 = check_select(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE, "train-step y->x")
+    select_err = max(select_err, err1, err2)
     err = max(err, check_cluster(xs_p, ys1_p, ids1, CHUNK, "train-step x->y (y_distinct 16)"))
     err = max(err, check_cluster(ys_p, xs_p, ids2, CHUNK, "train-step y->x"))
     _, i1 = cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK)
@@ -521,8 +655,11 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
     b, np_, t = xs_p.shape[0], xs_p.shape[1], ids1.shape[2]
     pairs = b * np_ * t * CHUNK
     moved = (xs_p.numel() + ys1_p.numel() + ids1.numel() + 2 * b * np_) * 4
+    ms, sm_mhz = time_ms_and_clock(lambda: cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK), 20, inner=10)
     timing = {
-        "ms": time_ms(lambda: cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK), 20),
+        "ms": ms,
+        "sm_clock_mhz": sm_mhz,
+        "issue_slots_a_pair": ms * 1e-3 * sm_mhz * 1e6 * SM_LANES / pairs,
         "ms_y_to_x": time_ms(lambda: cluster.nn_cluster(ys_p, xs_p, ids2, CHUNK), 20),
         "plain_ms": time_ms(lambda: cluster.nn_cluster_plain(xs_p, ys1_p, ids1, CHUNK), 3),
         "library_ms": None,  # no single PyTorch call computes a table-driven pruned NN
@@ -536,18 +673,32 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
         "max_abs_err": err,
         "agreement_with_exact": agree,
     }
+    select = {**time_select(xs_p, ys1_p, ys_p, b * np_ // 256), "max_abs_err": select_err}
     sort_ms = time_ms(lambda: (cluster._sort_by_morton(preds), cluster._sort_by_morton(gt)), 10)
-    select_ms = time_ms(lambda: (cluster.select_chunks(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE),
-                                 cluster.select_chunks(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE)), 10)
     timing["prep_ms"] = time_ms(prep, 10)
     print(f"  nn_cluster at {tuple(xs_p.shape[:2])}, T={t}, S={CHUNK}: kernel x->y {timing['ms']:.3f} ms, "
           f"y->x {timing['ms_y_to_x']:.3f} ms, plain {timing['plain_ms']:.3f} ms, "
           f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}), "
           f"issue bound {timing['issue_bound_ms']:.4f} ms, of which the kernel reaches "
-          f"{timing['issue_bound_ms'] / timing['ms']:.3f}")
+          f"{timing['issue_bound_ms'] / timing['ms']:.3f}; {timing['issue_slots_a_pair']:.2f} issue "
+          f"slots a pair at the {sm_mhz} MHz read meanwhile; target {K3_TARGET_MS} ms "
+          f"{'met' if max(timing['ms'], timing['ms_y_to_x']) <= K3_TARGET_MS else 'MISSED'}")
+    print(f"  select_chunks at {tuple(xs_p.shape[:2])} x C={ys1_p.shape[1] // CHUNK}, T={t}: kernel "
+          f"x->y {select['ms']:.4f} ms, y->x {select['ms_y_to_x']:.4f} ms, plain x->y "
+          f"{select['plain_ms']:.3f} ms; bound {select['bound_ms']:.4f} ms ({select['bound_by']}), "
+          f"issue bound {select['issue_bound_ms']:.4f} ms at the {select['sm_clock_mhz']} MHz read "
+          f"meanwhile, of which the kernel reaches {select['issue_bound_ms'] / select['ms']:.3f}")
+    print(f"  chunk selection of one loss (both directions): {select['both_directions_ms']:.3f} ms "
+          f"through the kernel, of which the torch ops for centres, radii and centroids "
+          f"{select['stats_both_directions_ms']:.3f} ms; {select['plain_both_directions_ms']:.3f} ms "
+          f"as torch ops (select_chunks_plain); target {SELECT_TARGET_MS} ms "
+          f"{'met' if select['both_directions_ms'] <= SELECT_TARGET_MS else 'MISSED'}")
+    check(select["both_directions_ms"] <= select["plain_both_directions_ms"],
+          "the selection kernel is slower than select_chunks_plain")
     print(f"  prep of one clustered loss (both directions): {timing['prep_ms']:.3f} ms, of which "
-          f"Morton sorts of 48 + 16 clouds {sort_ms:.3f} ms, chunk selection {select_ms:.3f} ms; "
-          f"the two scans take {timing['ms'] + timing['ms_y_to_x']:.3f} ms")
+          f"Morton sorts of 48 + 16 clouds {sort_ms:.3f} ms, chunk selection "
+          f"{select['both_directions_ms']:.3f} ms; the two scans take "
+          f"{timing['ms'] + timing['ms_y_to_x']:.3f} ms")
 
     # K2 on the clustered backward's stream: per cloud the n own entries and
     # the m cross entries, original-frame ids, one 60k-entry stable sort
@@ -566,7 +717,63 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict]:
     }
     print_segsum(f"the {tuple(idx_s.shape)} clustered stream ->S={n}", stream)
     print(f"  scatter_add_3 on that stream, with its stable sort: {stream['with_sort_ms']:.3f} ms")
-    return timing, stream
+    return timing, select, stream
+
+
+def phase_sampler(dev: torch.device) -> dict:
+    """The sampler's backward: its cases against a float64 sum, then K2 on
+    the streams the train steps give it: 3 corners x 16 meshes of 3 x 30k
+    sorted face ids of the vision atlas, 3 corners x 64 touch charts of
+    3 x 4000; and on the vision shape with one face taking every sample,
+    which is one warp's work a row."""
+    for name in INTERPOLATE_CASES:
+        case = interpolate_case(name)
+        on_card = lambda k: torch.from_numpy(case[k]).to(dev)  # noqa: E731
+        verts = on_card("verts").requires_grad_()
+        out = sampler._interpolate(verts, on_card("idx"), on_card("w"), on_card("faces"))
+        before = SEGSUM.launches
+        (dverts,) = torch.autograd.grad(out, verts, on_card("g"))
+        ref = interpolate_backward_float64(case)
+        scale = interpolate_backward_float64(dict(case, w=np.abs(case["w"]), g=np.abs(case["g"])))
+        err = np.abs(dverts.cpu().numpy() - ref)
+        print(f"  sampler backward {name}: max_abs_err {err.max():.3e} against a float64 sum, "
+              f"{SEGSUM.launches - before} segment-sum launch")
+        # one float32 sum per face and one index_add_ per corner
+        check(bool((err <= 1e-5 * (1 + scale)).all()), f"sampler backward wrong at {name}")
+        check(SEGSUM.launches == before + 1, f"sampler backward: not one K2 launch at {name}")
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    atlas = vision_charts()
+    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(16, -1, -1)
+    verts = torch.cat([verts, torch.zeros(16, 500, 3, device=dev)], 1)  # touch slots
+    chart = touch_chart()
+    out = {}
+    for label, verts, faces, num in (
+        ("sampler_stream", verts, build_adj_info(atlas).faces, REPEAT * MAIN["number_points"]),
+        ("touch_sampler_stream", torch.as_tensor(chart.verts, device=dev)[None].expand(64, -1, -1),
+         chart.faces, REPEAT * 4000),
+    ):
+        faces = torch.as_tensor(faces, device=dev).long()
+        f, rows = faces.shape[0], 3 * verts.shape[0]
+        e, _, _ = draw_sample_noise(verts.shape[0], num, g, dev)
+        ids = sample_faces(verts, faces, e).to(torch.int32).repeat(3, 1).contiguous()
+        vals = torch.randn(rows, num, 3, device=dev, generator=g) * 1e-4
+        name = label.replace("_", " ")
+        err = check_segsum(ids, vals, f, name, twice=True)
+        out[label] = {**time_segsum(ids, vals, f), "max_abs_err": err}
+        print_segsum(f"the {tuple(ids.shape)} {name} ->F={f}", out[label])
+        if label != "sampler_stream":
+            continue
+        # one face a row is one address for the library's atomics and one
+        # warp for the kernel: checked and printed, and held to no time
+        one_face = torch.full_like(ids, 17)
+        err = check_segsum(one_face, vals, f, "one face stream", twice=True)
+        t = out["one_face_stream"] = {**time_segsum(one_face, vals, f), "max_abs_err": err}
+        print(f"  segsum_sorted at the {tuple(ids.shape)} one face stream ->F={f}: kernel "
+              f"{t['ms']:.4f} ms single, {t['ms_graphed']:.4f} ms graphed  plain {t['plain_ms']:.3f} ms  "
+              f"library (scatter_add_) {t['library_ms']:.4f} ms single, "
+              f"{t['library_ms_graphed']:.4f} ms graphed  bound {t['bound_ms']:.4f} ms (bytes)")
+    return out
 
 
 def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
@@ -606,9 +813,11 @@ def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
     cfg = VisionConfig(**MAIN, experiments_root=EXPERIMENTS)
     engine = VisionEngine(cfg, log=False)  # the default device: the card
     batch = engine.to_device(main_batch(cfg))
-    # 2 NN launches per loss (both directions), 2 segment sums per backward
+    # 2 NN launches per loss (both directions); per backward 2 segment sums
+    # of the Chamfer loss and 1 of the sampler
+    none = {k.name: 0 for k in KERNELS}
     launches["exact"] = run_path(
-        engine, batch, {NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4, NN_CLUSTER.name: 0}, "exact")
+        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 3 * 4}, "exact")
     paths["exact"] = (engine, batch)
 
     clustered = {k: v for k, v in MAIN.items() if k != "loss_nn"}  # the default
@@ -616,16 +825,18 @@ def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
     check(cfg.loss_nn == "clustered", "the default loss_nn is no longer 'clustered'")
     engine = VisionEngine(cfg, log=False)
     batch = engine.to_device(surface_batch(cfg, dev))
-    # 2 pruned scans per loss; one fused segment sum per backward (only dx)
+    # 2 chunk tables and 2 pruned scans per loss; per backward one fused
+    # segment sum of the Chamfer loss (only dx) and 1 of the sampler
     launches["clustered"] = run_path(
-        engine, batch, {NN_EXACT.name: 0, SEGSUM.name: 4, NN_CLUSTER.name: 2 * 5}, "clustered")
+        engine, batch,
+        {**none, SEGSUM.name: 2 * 4, NN_CLUSTER.name: 2 * 5, SELECT_CHUNKS.name: 2 * 5}, "clustered")
     paths["clustered"] = (engine, batch)
 
     cfg = TouchConfig(eval=True, experiments_root=EXPERIMENTS)  # batch 64, 4000 samples, exact
     engine = TouchEngine(cfg, log=False)
     batch = engine.to_device(touch_batch(cfg))
     launches["touch"] = run_path(
-        engine, batch, {NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4, NN_CLUSTER.name: 0}, "touch")
+        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 3 * 4}, "touch")
     paths["touch"] = (engine, batch)
     return paths, launches
 
@@ -648,7 +859,11 @@ def phase_outputs(paths: dict) -> None:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     engine.config.loss_nn = "xla"  # the plain brute force and index_add_
-    loss_p, grads_p = loss_and_grads(engine, batch, 7)
+    sampler.segment_accumulate_sorted = segment_sum_plain  # and the sampler's backward on it
+    try:
+        loss_p, grads_p = loss_and_grads(engine, batch, 7)
+    finally:
+        sampler.segment_accumulate_sorted = segment_accumulate_sorted
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     engine.config.loss_nn = "exact"
@@ -672,6 +887,31 @@ def phase_outputs(paths: dict) -> None:
         verts, _ = engine.model(batch["img"], charts, engine.adj, engine.original_adj)
         pts = batch_sample(verts, engine.faces, REPEAT * n, generator=engine.step_generator(8))
     preds = torch.cat(torch.split(pts, n, dim=1), 0).contiguous()
+
+    # the sampler's backward alone at the step's shapes (16 meshes, 90000
+    # samples): K2 against index_add_, which adds with atomics, by K2's
+    # tolerance against the sum of the absolute terms
+    cot = torch.randn(pts.shape, device=pts.device, generator=engine.step_generator(9))
+    draws = draw_sample_noise(16, REPEAT * n, engine.step_generator(8), pts.device)
+
+    def sampler_backward(segsum, cotangent):
+        v = verts.detach().clone().requires_grad_()
+        sampler.segment_accumulate_sorted = segsum
+        try:
+            sampled = batch_sample(v, engine.faces, REPEAT * n, draws=draws)
+            return torch.autograd.grad(sampled, v, cotangent)[0]
+        finally:
+            sampler.segment_accumulate_sorted = segment_accumulate_sorted
+
+    d_kernel = sampler_backward(segment_accumulate_sorted, cot)
+    d_plain = sampler_backward(segment_sum_plain, cot)
+    # the barycentric weights are positive, so the backward of |g| is Σ|w g|
+    scale = sampler_backward(segment_sum_plain, cot.abs())
+    back_err = (d_kernel - d_plain).abs()
+    print(f"  sampler backward at (16, {REPEAT * n}): max_abs_err {float(back_err.max()):.3e} "
+          f"against the plain version, largest element {float(d_plain.abs().max()):.3e}")
+    check(bool((back_err <= 1e-5 * (1 + scale)).all()), "sampler backward: kernel != plain")
+
     out = {}
     for plain in (False, True):
         x = preds.clone().requires_grad_()
@@ -730,10 +970,17 @@ def phase_outputs(paths: dict) -> None:
 
 
 def phase_profile(engine, batch: dict, label: str) -> None:
+    """One train step under ``torch.profiler`` beside the same step without
+    it: the device's time by kernel, and the host's side of the step: its
+    time in the launch calls and the time it waits for the card."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = engine.step_generator(200)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_step(batch, gen)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.train_step(batch, gen)
@@ -748,8 +995,32 @@ def phase_profile(engine, batch: dict, label: str) -> None:
     print(f"  profile of one {label} train step: wall {wall_ms:.3f} ms (under the profiler), "
           f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in kernels)} kernel launches")
+    # the host's side, from the profiler's CPU events: a step whose host
+    # waits long in the synchronising calls is held by the card, one whose
+    # host hardly waits there is held by the host
+    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    calls = lambda *names: [e for e in host if e.key in names]  # noqa: E731
+    launch = calls("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+    waits = calls("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
+    launch_ms = sum(e.self_cpu_time_total for e in launch) / 1e3
+    n_launch = sum(e.count for e in launch)
+    wait_ms = sum(e.self_cpu_time_total for e in waits) / 1e3
+    print(f"    the same step without the profiler, just before: wall {plain_wall_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / plain_wall_ms:.3f} by the profiled step's device time")
+    print(f"    host under the profiler: {n_launch} launch calls {launch_ms:.3f} ms "
+          f"({launch_ms / max(n_launch, 1) * 1e3:.2f} us each), waiting in "
+          f"{sum(e.count for e in waits)} synchronising calls {wait_ms:.3f} ms, "
+          f"the other {wall_ms - launch_ms - wait_ms:.3f} ms in Python and the dispatcher")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    ours = {k.name: sum(e.self_device_time_total for e in kernels if f"{k.name}_kernel" in e.key) / 1e3
+            for k in KERNELS}
+    print(f"    the hand-written kernels, ms: {ours}")
+    # the sampler's backward sums runs of sorted ids with the segment-sum
+    # kernel; a prefix sum over the sample axis in its place (an outer-
+    # dimension scan of a (16, 90000, 3, 3) tensor) costs a fifth of the step
+    check(not any("scan_outer_dim" in e.key for e in kernels),
+          f"an outer-dimension scan is back among the {label} step's kernels")
 
 
 def main() -> int:
@@ -764,7 +1035,9 @@ def main() -> int:
     phase_build()
     print("== 3 kernels against their plain versions")
     timing = phase_kernels(dev)
-    timing[NN_CLUSTER.name], timing[SEGSUM.name]["clustered_stream"] = phase_cluster(dev)
+    (timing[NN_CLUSTER.name], timing[SELECT_CHUNKS.name],
+     timing[SEGSUM.name]["clustered_stream"]) = phase_cluster(dev)
+    timing[SEGSUM.name].update(phase_sampler(dev))
     print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch")
     paths, launches = phase_main_paths(dev)
     print("== 5 outputs")
@@ -778,6 +1051,8 @@ def main() -> int:
         NN_EXACT.name: "active_3d_vision_and_touch_tpu/ops/chamfer.py:32",
         SEGSUM.name: "active_3d_vision_and_touch_tpu/ops/segsum.py:43",
         NN_CLUSTER.name: "active_3d_vision_and_touch_tpu/ops/chamfer_cluster.py:119",
+        # no TPU kernel: the XLA ops of tile_select under lax.map
+        SELECT_CHUNKS.name: "active_3d_vision_and_touch_tpu/ops/chamfer_cluster.py:247",
     }
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -15,6 +15,7 @@ from active_3d_vision_and_touch_tpu_torch.ops import (
     NN_CLUSTER,
     NN_EXACT,
     SEGSUM,
+    SELECT_CHUNKS,
     min_dists,
     nn_cluster,
     scatter_add_3,
@@ -25,19 +26,29 @@ from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import (
     _sort_by_morton,
     nn_cluster_plain,
     select_chunks,
+    select_chunks_plain,
 )
+from active_3d_vision_and_touch_tpu_torch.ops.sample import _interpolate
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
     segment_accumulate_sorted,
     segment_sum_plain,
 )
 from active_3d_vision_and_touch_tpu_torch.testing import (
+    INTERPOLATE_CASES,
+    NN_CLUSTER_CASES,
     NN_SHAPES,
     NN_TIE_CASES,
     SEGSUM_CASES,
+    SELECT_CASES,
+    cluster_first_argmin,
     first_argmin,
+    interpolate_backward_float64,
+    interpolate_case,
+    nn_cluster_case,
     nn_shape_case,
     nn_tie_case,
     segsum_case,
+    select_case,
 )
 
 
@@ -77,7 +88,8 @@ def test_kernel_sources_exist_and_cpu_tensors_launch_nothing():
     """Every kernel's source is in the package; a CPU tensor takes the plain
     version, and no launch is counted."""
     rng = np.random.default_rng(0)
-    assert [k.name for k in KERNELS] == ["nn_exact", "segsum_sorted", "nn_cluster"]
+    assert [k.name for k in KERNELS] == [
+        "nn_exact", "segsum_sorted", "nn_cluster", "select_chunks"]
     for k in KERNELS:
         assert k.source.exists()
     before = [k.launches for k in KERNELS]
@@ -85,6 +97,10 @@ def test_kernel_sources_exist_and_cpu_tensors_launch_nothing():
     _, i = min_dists(torch.from_numpy(x), torch.from_numpy(y))
     scatter_add_3(i, torch.ones(1, 20, 3), 30)
     nn_cluster(torch.zeros(1, 256, 3), torch.ones(1, 8, 3), torch.zeros(1, 1, 2, dtype=torch.int32), 4)
+    select_chunks(torch.zeros(1, 256, 3), torch.ones(1, 8, 3), 4, 2)
+    verts = torch.from_numpy(rng.normal(size=(1, 5, 3)).astype(np.float32)).requires_grad_()
+    faces = torch.tensor([[0, 1, 2], [2, 3, 4]])
+    _interpolate(verts, torch.tensor([[0, 0, 1]]), torch.ones(1, 3, 3), faces).sum().backward()
     assert [k.launches for k in KERNELS] == before
 
 
@@ -199,3 +215,61 @@ def test_nn_cluster_kernel_matches_plain_on_card(cuda_device):
         nn_cluster(xs.double(), ys.double(), ids, 64)
     with pytest.raises(ValueError):
         nn_cluster(xs[:, :100], ys, ids, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NN_CLUSTER_CASES)
+def test_nn_cluster_kernel_matches_plain_on_table_cases_on_card(cuda_device, name):
+    """K3 on chunk sizes that do and do not divide its groups of eight list
+    positions and its loads of four, lists below, on and beyond a staging
+    round, placed ties, a chunk listed twice, ids that name no chunk and
+    folded ref rows: distance and index equal to the plain version and to
+    the numpy scan, tolerance 0.  The plain version takes ids that name no
+    chunk as one more chunk of +inf points."""
+    case = nn_cluster_case(name)
+    on_card = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    d, i = nn_cluster(on_card(case["xs"]), on_card(case["ys"]), on_card(case["ids"]), case["chunk"])
+    d_p, i_p = nn_cluster_plain(
+        on_card(case["xs"]), on_card(case.get("ys_valid", case["ys"])),
+        on_card(case.get("ids_valid", case["ids"])), case["chunk"])
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+    d_ref, i_ref = cluster_first_argmin(case["xs"], case["ys"], case["ids"], case["chunk"])
+    np.testing.assert_array_equal(i.cpu().numpy(), i_ref)
+    np.testing.assert_array_equal(d.cpu().numpy(), d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SELECT_CASES)
+def test_select_chunks_kernel_matches_plain_on_card(cuda_device, name):
+    """The selection kernel against its plain version on the card, which
+    start from the same chunk centres, radii and tile centroids: the table equal
+    index for index, also where bounds and scores tie, where every chunk is
+    a candidate, and where a query is NaN or infinite."""
+    case = select_case(name)
+    xs = torch.from_numpy(case["xs"]).to(cuda_device)
+    ys = torch.from_numpy(case["ys"]).to(cuda_device)
+    launches = SELECT_CHUNKS.launches
+    ids = select_chunks(xs, ys, case["chunk"], case["chunks_per_tile"])
+    assert SELECT_CHUNKS.launches == launches + 1  # a CUDA tensor went to the kernel
+    ids_p = select_chunks_plain(xs, ys, case["chunk"], case["chunks_per_tile"])
+    assert ids.dtype == torch.int32 and torch.equal(ids, ids_p)
+    assert int(ids.min()) >= 0 and int(ids.max()) < ys.shape[1] // case["chunk"]
+    with pytest.raises(TypeError):
+        select_chunks(xs.double(), ys.double(), case["chunk"], case["chunks_per_tile"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", INTERPOLATE_CASES)
+def test_interpolate_backward_on_card_is_one_segsum_launch(cuda_device, name):
+    """The sampler's backward on the card: one launch of K2, and the vertex
+    cotangent within 1e-5 * (1 + Σ|w g| into the vertex) of a float64 sum."""
+    case = interpolate_case(name)
+    on_card = lambda k: torch.from_numpy(case[k]).to(cuda_device)  # noqa: E731
+    verts = on_card("verts").requires_grad_()
+    out = _interpolate(verts, on_card("idx"), on_card("w"), on_card("faces"))
+    launches = SEGSUM.launches
+    (dv,) = torch.autograd.grad(out, verts, on_card("g"))
+    assert SEGSUM.launches == launches + 1
+    ref = interpolate_backward_float64(case)
+    scale = interpolate_backward_float64(dict(case, w=np.abs(case["w"]), g=np.abs(case["g"])))
+    assert (np.abs(dv.cpu().numpy() - ref) <= 1e-5 * (1 + scale)).all()
