@@ -10,9 +10,12 @@ follow the JAX package's:
              segment-sum CUDA kernels (``csrc/``), area-weighted sampling,
              NeRF encoding, bilinear pooling
 - ``models`` the vision ``Deformation`` network (CNN pyramids + GCN stages,
-             touch-context and plane pathways) and the ``TouchChartEncoder``
-- ``train``  the vision and touch trainers (``VisionEngine``,
-             ``TouchEngine``), checkpoints, early stop
+             touch-context and plane pathways), the ``TouchChartEncoder``
+             and the ``MeshAutoEncoder``
+- ``train``  the vision, touch and autoencoder trainers (``VisionEngine``,
+             ``TouchEngine``, ``AutoencoderEngine``), checkpoints, early stop
+- ``data``   the rollout dataset and its prefetching loader (host, numpy)
+- ``active`` the active-touch environment and the non-learned policies
 - ``convert`` flax variables → the port's ``state_dict``s
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

@@ -1,10 +1,12 @@
 """Carry the flax models' variables over to the port's modules.
 
-:func:`deformation_from_flax` and :func:`touch_encoder_from_flax` take the
-flax ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays
-(``jax.device_get`` of the JAX package's state), so this module never sees
-JAX, and return a ``state_dict`` for :class:`models.vision.Deformation` and
-:class:`models.touch.TouchChartEncoder`.
+:func:`deformation_from_flax`, :func:`touch_encoder_from_flax` and
+:func:`autoencoder_from_flax` take the flax ``params`` (and ``batch_stats``)
+trees as nested dicts of numpy arrays (``jax.device_get`` of the JAX
+package's state), so this module never sees JAX, and return a
+``state_dict`` for :class:`models.vision.Deformation`,
+:class:`models.touch.TouchChartEncoder` and
+:class:`models.autoencoder.MeshAutoEncoder`.
 
 Layouts: a Dense kernel (in, out) becomes ``Linear.weight`` (out, in); a
 Conv kernel HWIO becomes OIHW; ``GCNLayer.weight`` stays (in, out); an Embed
@@ -100,6 +102,21 @@ def _map_touch_encoder(path: tuple, value: np.ndarray):
     return None
 
 
+def _map_autoencoder(path: tuple, value: np.ndarray):
+    top, *rest = path
+    if top == "positional" and len(rest) == 2:
+        return _layer("positional.", *rest, value, {"Dense": "layers"})
+    if top == "mask_enc" and rest == ["Embed_0", "embedding"]:
+        return "mask_enc.embed.weight", value
+    if top == "encoder" and len(rest) == 2 and rest[0].startswith("GCNLayer"):
+        if rest[1] in ("weight", "bias"):
+            return f"encoder.gcn.layers.{_index(rest[0], 'GCNLayer')}.{rest[1]}", value
+        return None
+    if top in ("encoder", "decoder") and len(rest) == 2:
+        return _layer(f"{top}.", *rest, value, {"Dense": "dense"})
+    return None
+
+
 def _convert(params: dict, batch_stats: dict | None, map_leaf) -> dict:
     leaves = _flatten(params)
     leaves.update(_flatten(batch_stats or {}))
@@ -125,3 +142,9 @@ def touch_encoder_from_flax(params: dict, batch_stats: dict | None = None) -> di
     ``state_dict``.  The first Dense layer's rows need no permutation: the
     port flattens its last feature map in flax's (h, w, c) order."""
     return _convert(params, batch_stats, _map_touch_encoder)
+
+
+def autoencoder_from_flax(params: dict) -> dict:
+    """flax ``MeshAutoEncoder`` params → torch ``state_dict`` (the model
+    has no batch statistics)."""
+    return _convert(params, None, _map_autoencoder)

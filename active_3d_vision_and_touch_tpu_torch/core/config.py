@@ -3,7 +3,11 @@
 The port's own copy of the JAX package's ``core/config.py`` (the port
 imports nothing of that package).  Defaults are identical, including
 ``loss_nn="clustered"``, so a config file written by either package
-rebuilds the same experiment in the other.  The settings keep their
+rebuilds the same experiment in the other; ``load_config`` drops the
+fields the port does not have yet.  One default differs on purpose:
+``AutoencoderConfig.loss_nn`` is ``"exact"``, because the clustered loss
+passes no gradient to the cloud the autoencoder decodes (see
+``train/autoencoder.py``).  The settings keep their
 reference names: ``v_t_p`` / ``v_t_g`` (vision+touch, single-finger /
 4-finger grasp) and ``t_p`` / ``t_g`` (touch-only).
 """
@@ -117,3 +121,34 @@ class VisionConfig(BaseConfig):
     @property
     def setting(self) -> str:
         return setting_name(self.use_img, self.finger)
+
+
+@dataclass
+class AutoencoderConfig(VisionConfig):
+    """Autoencoder trainer defaults (``autoencoder/train.py:349-452``).
+
+    ``loss_nn`` is ``"exact"``, where the JAX package inherits
+    ``"clustered"``: the decoded cloud is the second argument of the
+    Chamfer loss, and the clustered loss treats that argument as data."""
+
+    encoding_size: int = 200
+    grid_size: int = 80
+    vision_location: str = ""
+    loss_nn: str = "exact"
+
+
+@dataclass
+class PolicyConfig(VisionConfig):
+    """Defaults of the non-learned active policies (reference
+    ``policies/*/train.py`` arg blocks).  The learned policies' fields
+    (DDQN, supervised) come with their engines; ``load_config`` drops them
+    from a JAX-written file until then."""
+
+    env_batch_size: int = 3
+    budget: int = 5
+    num_grasps: int = 5
+    use_latent: bool = False
+    touch_location: str = ""
+    vision_location: str = ""
+    auto_location: str = ""
+    greedy_checks: int = 50

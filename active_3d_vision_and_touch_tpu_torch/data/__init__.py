@@ -1,0 +1,6 @@
+from active_3d_vision_and_touch_tpu_torch.data.datasets import (  # noqa: F401
+    ActiveDataset,
+    Loader,
+    load_split,
+    object_dirs,
+)

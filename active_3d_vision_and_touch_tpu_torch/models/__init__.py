@@ -1,3 +1,9 @@
+from active_3d_vision_and_touch_tpu_torch.models.autoencoder import (  # noqa: F401
+    FoldingDecoder,
+    GCNEncoder,
+    MeshAutoEncoder,
+    folding_grid,
+)
 from active_3d_vision_and_touch_tpu_torch.models.gcn import (  # noqa: F401
     GCN,
     GCNLayer,

@@ -107,6 +107,7 @@ class _ChamferDistance(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y, ix, iy = ctx.saved_tensors
+        need_x, need_y = ctx.needs_input_grad[:2]
         n, m = x.shape[1], y.shape[1]
         gx = (g / n)[:, None, None]
         gy = (g / m)[:, None, None]
@@ -114,11 +115,13 @@ class _ChamferDistance(torch.autograd.Function):
         x_near = torch.gather(x, 1, iy.long()[..., None].expand(-1, -1, 3))
         diff1 = 2.0 * (x - y_near)  # term 1: mean_i ||x_i - y_{ix_i}||^2
         diff2 = 2.0 * (y - x_near)  # term 2: mean_j ||y_j - x_{iy_j}||^2
-        # the plain sum takes unsorted ids as they are
+        # the plain sum takes unsorted ids as they are.  Each scatter feeds
+        # one input's gradient only: a cloud that is data (the gt cloud, or
+        # the samples of a frozen mesh) costs no sort and no kernel launch
         scatter = segment_sum_plain if ctx.plain else scatter_add_3
-        dx2 = -scatter(iy, gy * diff2, n)
-        dy1 = -scatter(ix, gx * diff1, m)
-        return gx * diff1 + dx2, gy * diff2 + dy1, None
+        dx = gx * diff1 - scatter(iy, gy * diff2, n) if need_x else None
+        dy = gy * diff2 - scatter(ix, gx * diff1, m) if need_y else None
+        return dx, dy, None
 
 
 def chamfer_distance(x: torch.Tensor, y: torch.Tensor, plain: bool = False) -> torch.Tensor:

@@ -22,10 +22,9 @@ from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distan
 from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
 
 
-def build_deformation(config: VisionConfig, device="cuda"):
-    """(model, adj_info, initial_mesh) on ``device`` for a given config.
-    The weights are drawn on the CPU from a generator seeded with
-    ``config.seed``, so every device starts from the same ones."""
+def deformation_geometry(config: VisionConfig, device="cuda"):
+    """(adj_info, initial_mesh) on ``device``: the adjacency of the atlas
+    with ``config``'s grasp slots, and the atlas's initial vertices."""
     device = resolve_device(device)
     atlas = vision_charts()
     adj_info = build_adj_info(
@@ -34,6 +33,13 @@ def build_deformation(config: VisionConfig, device="cuda"):
         num_fingers=config.num_fingers,
         num_grasps=config.num_grasps,
     )
+    return adj_info.to(device), torch.as_tensor(atlas.verts, device=device)
+
+
+def build_deformation(config: VisionConfig, device="cuda") -> Deformation:
+    """The ``Deformation`` of ``config`` on ``device``.  The weights are
+    drawn on the CPU from a generator seeded with ``config.seed``, so every
+    device starts from the same ones."""
     model = Deformation(
         use_img=config.use_img,
         use_touch=config.use_touch,
@@ -47,11 +53,7 @@ def build_deformation(config: VisionConfig, device="cuda"):
         cnn_kernel=config.cnn_kernel,
     )
     init_modules_(model, torch.Generator().manual_seed(config.seed))
-    return (
-        model.to(device),
-        adj_info.to(device),
-        torch.as_tensor(atlas.verts, device=device),
-    )
+    return model.to(resolve_device(device))
 
 
 class VisionEngine(ReconEngine):
@@ -59,19 +61,25 @@ class VisionEngine(ReconEngine):
 
     def __init__(self, config: VisionConfig | None = None, device="cuda", log: bool = True):
         config = config or VisionConfig()
-        self.model, self.adj_info, self.initial_mesh = build_deformation(config, device)
+        self.model = build_deformation(config, device)
+        self.adj_info, self.initial_mesh = deformation_geometry(config, device)
         self.adj = self.adj_info.adj
         self.original_adj = self.adj_info.original
         self.faces = self.adj_info.faces
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=config.lr)
         super().__init__(config, device=device, log=log)
 
-    def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
+    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """The deformed mesh of ``batch``: (verts (B, V, 3), mask (B, V, 1)),
+        in the model's current mode."""
         b = batch["gt_points"].shape[0]
         charts = prepare_charts(
             batch.get("touch_charts"), self.initial_mesh, b, use_touch=self.config.use_touch
         )
-        verts, _ = self.model(batch.get("img"), charts, self.adj, self.original_adj)
+        return self.model(batch.get("img"), charts, self.adj, self.original_adj)
+
+    def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
+        verts, _ = self.forward(batch)
         cd = mesh_chamfer_distance(
             verts,
             self.faces,

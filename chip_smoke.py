@@ -23,32 +23,43 @@ package, and runs these phases in order; any failure exits non-zero:
    ``scatter_add_`` by the device's time (replays of a CUDA graph of 20
    launches) and the chunk selection no slower than its torch-op version;
    the segment sum on the sampler backward's streams (the vision step's,
-   the touch step's, and one face taking every sample);
-4. the main paths at full width, each taking 1 warm-up and 3 train steps
-   and 1 eval step from random weights made from the seed, with every
-   launch counter set to 0 just before and read just after, and each kernel
-   required to have run exactly as often as the path needs:
+   the touch step's, and one face taking every sample); the exact search
+   and the segment sum at the autoencoder's and the environment's shapes;
+4. the main paths at full width, each from random weights made from the
+   seed, with every launch counter set to 0 just before and read just
+   after, and each kernel required to have run exactly as often as the path
+   needs.  Four trainers take 1 warm-up and 3 train steps and 1 eval step:
    ``VisionEngine`` on the v_t_g configuration (batch 16, 30k points,
    3-repeat Chamfer) with ``loss_nn="exact"``, the same with ``loss_nn``
-   left at its default ``"clustered"``, and ``TouchEngine`` on its default
-   configuration (batch 64, 121x121 images, 4000 samples);
+   left at its default ``"clustered"``, ``TouchEngine`` on its default
+   configuration (batch 64, 121x121 images, 4000 samples), and
+   ``AutoencoderEngine`` on its default configuration (batch 16, a 20 x 300
+   GCN, a 200-wide latent, 6400 decoded points) over a frozen v_t_g
+   ``VisionEngine``.  ``ActiveTouchEnv`` on the default policy
+   configuration with the latent observation (3 objects, 50 grasps, budget
+   5, 30k points) reads a chart cache written from the seed, and runs a
+   greedy episode (every grasp scored each step), an even rollout and a
+   nearest-neighbour rollout through the policy engines; then one chunk of
+   candidate scores through the kernels and through the plain versions;
 5. the outputs: the full-width losses with the kernels against the same
-   step on the plain versions (the sampler's backward included), the
-   sampler's backward alone at the step's shapes, the clustered Chamfer on
-   the kernels against the same on the plain versions and against the exact
-   loss, and small configurations on the card against the same ones on the
-   CPU;
-6. a profile of one train step of each path beside the same step without
-   the profiler: device time by kernel, the host's time in the launch calls
-   and the time it waits for the card; no
-   outer-dimension scan (a ``cumsum`` over the sample axis, which the
-   sampler's backward has no need of) may be among them;
+   step on the plain versions (the sampler's backward included) for the
+   exact vision step and the autoencoder step, the sampler's backward alone
+   at the step's shapes, the clustered Chamfer on the kernels against the
+   same on the plain versions and against the exact loss, and small
+   configurations on the card against the same ones on the CPU;
+6. a profile of one train step of each trainer, and of one greedy
+   selection of the environment, beside the same work without the
+   profiler: device time by kernel, the host's time in the launch calls and
+   the time it waits for the card; no outer-dimension scan (a ``cumsum``
+   over the sample axis, which the sampler's backward has no need of) may
+   be among them;
 7. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -59,8 +70,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
+from active_3d_vision_and_touch_tpu_torch.active.policies.nearest import NearestNeighborEngine
+from active_3d_vision_and_touch_tpu_torch.active.policies.simple import EvenEngine
 from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, touch_chart, vision_charts
-from active_3d_vision_and_touch_tpu_torch.core.config import TouchConfig, VisionConfig
+from active_3d_vision_and_touch_tpu_torch.core.config import (
+    AutoencoderConfig,
+    PolicyConfig,
+    TouchConfig,
+    VisionConfig,
+)
+from active_3d_vision_and_touch_tpu_torch.data import ActiveDataset, Loader, object_dirs
 from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
 from active_3d_vision_and_touch_tpu_torch.ops import (
     KERNELS,
@@ -69,6 +89,7 @@ from active_3d_vision_and_touch_tpu_torch.ops import (
     SEGSUM,
     SELECT_CHUNKS,
 )
+from active_3d_vision_and_touch_tpu_torch.ops import chamfer as chamfer_module
 from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
 from active_3d_vision_and_touch_tpu_torch.ops import sample as sampler
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all, nvcc_path
@@ -99,6 +120,10 @@ from active_3d_vision_and_touch_tpu_torch.testing import (
     segsum_case,
     select_case,
 )
+from active_3d_vision_and_touch_tpu_torch.train.autoencoder import (
+    AutoencoderEngine,
+    build_autoencoder,
+)
 from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
 
@@ -118,10 +143,18 @@ CHUNK, CHUNKS_PER_TILE = 128, 24  # the clustered search's defaults
 # H100 showed 0.9765 (predictions -> gt) and 0.9273 (gt -> predictions); the
 # clouds are made from a seed, so a fall below 0.90 is a change in the code
 MIN_AGREEMENT = 0.90
-# K1's time targets at the two main-path shapes, on a card at its 700 W limit.
+# K1's time targets at the main paths' shapes, on a card at its 700 W limit.
 # They are printed as met or missed and fail nothing: a card set to a lower
 # limit runs slower.  What is checked is relative, within one run
-K1_TARGET_MS = {"(48, 30000)x30000": 16.0, "the touch shape (192, 4000)x4000": 1.25}
+K1_TARGET_MS = {
+    "(48, 30000)x30000": 16.0,
+    "the touch shape (192, 4000)x4000": 1.25,
+    "the autoencoder shape (48, 30000)x6400": 3.2,
+    "the env chunk shape (90, 30000)x30000": 28.0,
+}
+# the autoencoder's decoded points (its 80 x 80 folding grid), and the
+# environment's candidates per scoring pass (score_candidates' default chunk)
+AE_POINTS, ENV_CHUNK = 80 * 80, 10
 # the same for K3, either way, and for the chunk selection of one loss (both
 # directions, with the torch ops that feed the kernel)
 K3_TARGET_MS = 1.50
@@ -776,6 +809,51 @@ def phase_sampler(dev: torch.device) -> dict:
     return out
 
 
+def phase_slice_shapes(dev: torch.device) -> tuple[dict, dict]:
+    """K1 and K2 at the autoencoder's and the environment's shapes: against
+    their plain versions, then timed.  The autoencoder's loss holds 48
+    folded clouds of 30k samples of the frozen mesh against the 6400
+    decoded points, both ways, and its backward one segment sum of the
+    samples' argmins into the decoded points; one chunk of the
+    environment's candidate scores holds 3 objects x 10 candidates x 3
+    repeats of 30k samples against the gt clouds.  Returns K1's and K2's
+    numbers."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = MAIN["number_points"]
+    atlas = vision_charts()
+    faces = torch.as_tensor(build_adj_info(atlas).faces, device=dev).long()
+    verts = torch.as_tensor(atlas.verts, device=dev)[None]
+    verts = torch.cat([verts, torch.zeros(1, 500, 3, device=dev)], 1)  # touch slots
+
+    def folded(meshes: int) -> torch.Tensor:
+        pts = batch_sample(verts.expand(meshes, -1, -1), faces, REPEAT * n, generator=g)
+        return torch.cat(torch.split(pts, n, dim=1), 0).contiguous()
+
+    preds = folded(16)  # (48, 30k, 3)
+    decoded = (torch.randn(16, AE_POINTS, 3, device=dev, generator=g) * 0.1).repeat(REPEAT, 1, 1)
+    err = max(check_nn(preds, decoded, "autoencoder x->y"), check_nn(decoded, preds, "autoencoder y->x"))
+    env_preds = folded(3 * ENV_CHUNK)  # (90, 30k, 3)
+    env_gt = surface_clouds(3, n, g, dev).repeat_interleave(ENV_CHUNK, 0).repeat(REPEAT, 1, 1)
+    err = max(err, check_nn(env_preds, env_gt, "env chunk x->y"),
+              check_nn(env_gt, env_preds, "env chunk y->x"))
+
+    # the backward's stream: the samples' argmins into the decoded points
+    _, ix = min_dists(preds, decoded)
+    idx_s, perm = torch.sort(ix, dim=1, stable=True)
+    vals = torch.randn(preds.shape, device=dev, generator=g) * 1e-4
+    vals_s = torch.gather(vals, 1, perm[..., None].long().expand(-1, -1, 3)).contiguous()
+    seg_err = check_segsum(idx_s.contiguous(), vals_s, AE_POINTS, "autoencoder stream", twice=True)
+
+    nn = {"autoencoder_shape": time_nn(preds, decoded, 5),
+          "env_chunk_shape": time_nn(env_preds, env_gt, 2), "max_abs_err": err}
+    seg = {"autoencoder_stream": {**time_segsum(idx_s.contiguous(), vals_s, AE_POINTS),
+                                  "max_abs_err": seg_err}}
+    print_nn("the autoencoder shape (48, 30000)x6400", nn["autoencoder_shape"])
+    print_nn("the env chunk shape (90, 30000)x30000", nn["env_chunk_shape"])
+    print_segsum(f"the autoencoder stream (48, 30000)->S={AE_POINTS}", seg["autoencoder_stream"])
+    return nn, seg
+
+
 def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
     """1 warm-up + 3 train steps + 1 eval step with the launch counters set
     to 0 just before and read just after; returns the counts by kernel."""
@@ -806,18 +884,18 @@ def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
 
 
 def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
-    """The three main paths, each through its engine as a user builds it.
-    Returns the engines with their batches, and the launches by path."""
+    """The four trainers' paths, each through its engine as a user builds
+    it.  Returns the engines with their batches, and the launches by path."""
     paths, launches = {}, {}
 
     cfg = VisionConfig(**MAIN, experiments_root=EXPERIMENTS)
     engine = VisionEngine(cfg, log=False)  # the default device: the card
     batch = engine.to_device(main_batch(cfg))
-    # 2 NN launches per loss (both directions); per backward 2 segment sums
-    # of the Chamfer loss and 1 of the sampler
+    # 2 NN launches per loss (both directions); per backward 1 segment sum
+    # of the Chamfer loss (the gt cloud is data) and 1 of the sampler
     none = {k.name: 0 for k in KERNELS}
     launches["exact"] = run_path(
-        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 3 * 4}, "exact")
+        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4}, "exact")
     paths["exact"] = (engine, batch)
 
     clustered = {k: v for k, v in MAIN.items() if k != "loss_nn"}  # the default
@@ -836,9 +914,144 @@ def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
     engine = TouchEngine(cfg, log=False)
     batch = engine.to_device(touch_batch(cfg))
     launches["touch"] = run_path(
-        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 3 * 4}, "touch")
+        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4}, "touch")
     paths["touch"] = (engine, batch)
+
+    # the autoencoder over a frozen v_t_g vision model of its own
+    cfg = AutoencoderConfig(**clustered, experiments_root=EXPERIMENTS)
+    check(cfg.loss_nn == "exact", "the autoencoder's default loss_nn is no longer 'exact'")
+    vision = VisionEngine(VisionConfig(**MAIN, experiments_root=EXPERIMENTS), log=False)
+    engine = AutoencoderEngine(cfg, vision_engine=vision, log=False)
+    batch = engine.to_device(main_batch(cfg))
+    # 2 NN launches per loss; per backward one segment sum, into the decoded
+    # cloud: the samples of the frozen mesh carry no gradient, so neither
+    # the Chamfer loss's other sum nor the sampler's backward runs
+    launches["autoencoder"] = run_path(
+        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 4}, "autoencoder")
+    check(not vision.model.training, "the autoencoder's step switched the frozen model to train mode")
+    paths["autoencoder"] = (engine, batch)
     return paths, launches
+
+
+def write_active_world(root: Path, cfg: PolicyConfig, dev: torch.device) -> None:
+    """A dataset root the policies read, made from the seed: for each of
+    ``env_batch_size`` objects (all in the split "test") a 256x256 image,
+    a surface-like gt cloud of ``number_points`` points, and a chart cache
+    of ``num_actions`` grasps x 4 fingers in which every grasp holds the
+    three mask codes: two fingers touching (a small sheet about a point of
+    the cloud), one not (collapsed onto its position), one failing."""
+    rng = np.random.default_rng(0)
+    dirs = object_dirs(str(root))
+    for d in dirs.values():
+        Path(d).mkdir(parents=True, exist_ok=True)
+    b = cfg.env_batch_size
+    names = [f"object_{i:03d}" for i in range(b)]
+    clouds = surface_clouds(b, cfg.number_points, torch.Generator(device=dev).manual_seed(4), dev)
+    for name, cloud in zip(names, clouds.cpu().numpy()):
+        np.save(Path(dirs["images_colourful"]) / f"{name}.npy",
+                rng.integers(0, 256, size=(256, 256, 3)).astype(np.uint8))
+        np.save(Path(dirs["point_cloud_info"]) / f"{name}.npy", cloud)
+        charts = np.zeros((cfg.num_actions, 4, 25, 4), np.float32)
+        for a in range(cfg.num_actions):
+            for f, code in enumerate(rng.permutation([0, 1, 2, 2])):
+                pos = cloud[rng.integers(len(cloud))]
+                if code == 2:
+                    charts[a, f, :, :3] = pos + rng.normal(size=(25, 3)) * 0.003
+                elif code == 1:
+                    charts[a, f, :, :3] = pos
+                charts[a, f, :, 3] = code
+        (Path(dirs["touch_charts"]) / name).mkdir(exist_ok=True)
+        np.save(Path(dirs["touch_charts"]) / name / "touch_charts.npy", charts)
+    np.save(root / "data_split.npy", {"test": names})
+
+
+def phase_env(dev: torch.device) -> tuple[dict, object]:
+    """The active environment at the default policy configuration with the
+    latent observation, on a full-width frozen vision model and autoencoder
+    from the seed, through the policy engines as a user runs them.  Returns
+    the launches and a greedy selection to profile."""
+    cfg = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
+    root = Path(EXPERIMENTS) / "active_world"
+    write_active_world(root, cfg, dev)
+    env = ActiveTouchEnv(cfg, auto_model=build_autoencoder(AutoencoderConfig()),
+                         chart_cache_root=str(root))
+    batch = list(Loader(ActiveDataset(str(root), "test", number_points=cfg.number_points,
+                                      env_batch_size=cfg.env_batch_size),
+                        cfg.env_batch_size, shuffle=False))[0]
+    b = cfg.env_batch_size
+    chunks = -(-cfg.num_actions // ENV_CHUNK)
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    obs = env.reset(batch)
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    scores, greedy_ms, bank = [obs["score"]], [], []
+    for _ in range(cfg.budget):  # every grasp scored, each step
+        latent = obs["latent"]
+        t0 = time.perf_counter()
+        actions, obs, _, done = env.best_step()
+        greedy_ms.append((time.perf_counter() - t0) * 1e3)
+        scores.append(obs["score"])
+        bank += list(zip(latent, actions))
+    check(done, "the greedy episode did not end at the budget")
+    t0 = time.perf_counter()
+    even = EvenEngine(dataclasses.replace(cfg, exp_id="chip_smoke_even"), str(root), env=env)
+    even_result = even.evaluate("test", max_batches=1)
+    even_ms = (time.perf_counter() - t0) * 1e3
+    nearest = NearestNeighborEngine(dataclasses.replace(cfg, exp_id="chip_smoke_nn"), str(root), env=env)
+    nearest.latents = [latent for latent, _ in bank]
+    nearest.actions = [int(a) for _, a in bank]
+    t0 = time.perf_counter()
+    nearest_result = nearest.evaluate("test", max_batches=1)
+    nearest_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # each observation and each chunk of candidates is one exact Chamfer
+    # distance: 2 NN launches, and no backward
+    observations = (1 + cfg.budget) * 3  # the greedy, even and nearest episodes
+    expected = {k.name: 0 for k in KERNELS}
+    expected[NN_EXACT.name] = 2 * (observations + cfg.budget * chunks)
+    greedy = np.stack(scores, 1)
+    step_ms = float(np.median(greedy_ms))
+    print(f"  [env] greedy episode, % of the first score left after each step: "
+          f"{(100 * greedy.mean(0) / greedy[:, 0].mean()).round(3).tolist()}")
+    print(f"  [env] reset {reset_ms:.3f} ms; greedy step ms {[round(t, 3) for t in greedy_ms]}, median "
+          f"{step_ms:.3f} ({b} x {cfg.num_actions} candidates in {chunks} chunks of {ENV_CHUNK}, "
+          f"{b * cfg.num_actions / step_ms * 1e3:.1f} candidates scored a second)")
+    print(f"  [env] even rollout {even_ms:.3f} ms ({even_result.pct_cd_remaining:.3f}% left), "
+          f"nearest-neighbour rollout {nearest_ms:.3f} ms ({nearest_result.pct_cd_remaining:.3f}% left) "
+          f"from a bank of {len(bank)} latents")
+    print(f"  [env] peak memory {peak:.3f} GiB ({held / 2**30:.3f} GiB held before the path)  "
+          f"launches {launches}")
+    finite = [greedy, even_result.scores, nearest_result.scores]
+    check(all(np.isfinite(a).all() for a in finite), "non-finite score on the env path")
+    check(launches == expected, f"unexpected kernel launches on the env path: {launches}")
+
+    # one chunk of candidate scores with the same draws through K1 and
+    # through the plain version: the same scores (K1 is bit-exact)
+    env.reset(batch)
+    cands = np.tile(np.arange(ENV_CHUNK), (b, 1))
+    draws = draw_sample_noise(b * ENV_CHUNK, REPEAT * cfg.number_points,
+                              torch.Generator(device=dev).manual_seed(6), dev)
+    before = NN_EXACT.launches
+    on_kernels = env.score_candidates(cands, draws=[draws])
+    check(NN_EXACT.launches == before + 2, "a chunk of candidate scores is not 2 NN launches")
+    chamfer_module.min_dists = min_dists_plain
+    try:
+        on_plain = env.score_candidates(cands, draws=[draws])
+    finally:
+        chamfer_module.min_dists = min_dists
+    rel = float(np.max(np.abs(on_kernels - on_plain) / np.abs(on_plain)))
+    print(f"  [env] one chunk of {b} x {ENV_CHUNK} candidate scores: kernels against the plain "
+          f"versions, largest relative difference {rel:.3e}")
+    check(np.isfinite(on_kernels).all() and rel <= 1e-6, "env candidate scores: kernels != plain")
+    env.reset(batch)
+    return launches, env.best_action
 
 
 def loss_and_grads(engine, batch: dict, seed: int):
@@ -849,11 +1062,11 @@ def loss_and_grads(engine, batch: dict, seed: int):
     return float(loss.detach()), [p.grad.clone() for p in engine.model.parameters()]
 
 
-def phase_outputs(paths: dict) -> None:
-    """Full width: kernels vs plain versions inside the whole exact step,
-    the clustered Chamfer on the kernels vs the plain versions, and the
-    clustered loss vs the exact one.  Small width: the card vs the CPU."""
-    engine, batch = paths["exact"]
+def check_step_against_plain(engine, batch: dict, label: str) -> None:
+    """One full-width forward + backward of an exact-loss path on the
+    kernels against the same on the plain versions (``loss_nn="xla"``, and
+    the sampler's backward on ``index_add_``): the loss equal, the worst
+    gradient norm ratio at most 1e-3."""
     t0 = time.perf_counter()
     loss_k, grads_k = loss_and_grads(engine, batch, 7)
     torch.cuda.synchronize()
@@ -864,18 +1077,27 @@ def phase_outputs(paths: dict) -> None:
         loss_p, grads_p = loss_and_grads(engine, batch, 7)
     finally:
         sampler.segment_accumulate_sorted = segment_accumulate_sorted
+        engine.config.loss_nn = "exact"
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    engine.config.loss_nn = "exact"
-    print(f"  full width, forward + backward: {(t1 - t0) * 1e3:.3f} ms on the kernels, "
+    print(f"  full width ({label}), forward + backward: {(t1 - t0) * 1e3:.3f} ms on the kernels, "
           f"{(t2 - t1) * 1e3:.3f} ms on the plain versions")
     worst = max(float((a - b).norm() / (b.norm() + 1e-30)) for a, b in zip(grads_k, grads_p))
-    print(f"  full width: loss kernels {loss_k} plain {loss_p}; "
+    print(f"  full width ({label}): loss kernels {loss_k} plain {loss_p}; "
           f"worst relative grad error (norm) {worst:.3e}")
     # the forward is bit-identical; the backward differs by the order of
     # atomic adds (index_add_, grid_sample), which bf16 rounding can amplify
-    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), "full-width loss: kernels != plain")
-    check(worst <= 1e-3, "full-width gradients: kernels != plain")
+    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), f"full-width loss ({label}): kernels != plain")
+    check(worst <= 1e-3, f"full-width gradients ({label}): kernels != plain")
+
+
+def phase_outputs(paths: dict) -> None:
+    """Full width: kernels vs plain versions inside the whole exact vision
+    step and the autoencoder step, the clustered Chamfer on the kernels vs
+    the plain versions, and the clustered loss vs the exact one.  Small
+    width: the card vs the CPU."""
+    check_step_against_plain(*paths["exact"], "v_t_g exact")
+    check_step_against_plain(*paths["autoencoder"], "autoencoder")
 
     # the clustered Chamfer at the train step's shapes: 48 folded clouds
     # sampled from the deformed mesh against the 16 gt clouds
@@ -969,21 +1191,21 @@ def phase_outputs(paths: dict) -> None:
         check(rel <= 5e-2, f"small-width loss ({label}): card and CPU disagree")
 
 
-def phase_profile(engine, batch: dict, label: str) -> None:
-    """One train step under ``torch.profiler`` beside the same step without
-    it: the device's time by kernel, and the host's side of the step: its
-    time in the launch calls and the time it waits for the card."""
+def phase_profile(run, label: str) -> None:
+    """One call of ``run`` (a train step, a greedy selection) under
+    ``torch.profiler`` beside the same call without it: the device's time
+    by kernel, and the host's side: its time in the launch calls and the
+    time it waits for the card."""
     from torch.profiler import ProfilerActivity, profile
 
-    gen = engine.step_generator(200)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.train_step(batch, gen)
+    run()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.train_step(batch, gen)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -992,7 +1214,7 @@ def phase_profile(engine, batch: dict, label: str) -> None:
     if busy_ms == 0:
         print(f"  profile ({label}): no device time recorded (not measured)")
         return
-    print(f"  profile of one {label} train step: wall {wall_ms:.3f} ms (under the profiler), "
+    print(f"  profile of one {label}: wall {wall_ms:.3f} ms (under the profiler), "
           f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in kernels)} kernel launches")
     # the host's side, from the profiler's CPU events: a step whose host
@@ -1005,8 +1227,8 @@ def phase_profile(engine, batch: dict, label: str) -> None:
     launch_ms = sum(e.self_cpu_time_total for e in launch) / 1e3
     n_launch = sum(e.count for e in launch)
     wait_ms = sum(e.self_cpu_time_total for e in waits) / 1e3
-    print(f"    the same step without the profiler, just before: wall {plain_wall_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / plain_wall_ms:.3f} by the profiled step's device time")
+    print(f"    the same without the profiler, just before: wall {plain_wall_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / plain_wall_ms:.3f} by the profiled call's device time")
     print(f"    host under the profiler: {n_launch} launch calls {launch_ms:.3f} ms "
           f"({launch_ms / max(n_launch, 1) * 1e3:.2f} us each), waiting in "
           f"{sum(e.count for e in waits)} synchronising calls {wait_ms:.3f} ms, "
@@ -1020,7 +1242,7 @@ def phase_profile(engine, batch: dict, label: str) -> None:
     # kernel; a prefix sum over the sample axis in its place (an outer-
     # dimension scan of a (16, 90000, 3, 3) tensor) costs a fifth of the step
     check(not any("scan_outer_dim" in e.key for e in kernels),
-          f"an outer-dimension scan is back among the {label} step's kernels")
+          f"an outer-dimension scan is back among the kernels of the {label}")
 
 
 def main() -> int:
@@ -1038,13 +1260,22 @@ def main() -> int:
     (timing[NN_CLUSTER.name], timing[SELECT_CHUNKS.name],
      timing[SEGSUM.name]["clustered_stream"]) = phase_cluster(dev)
     timing[SEGSUM.name].update(phase_sampler(dev))
-    print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch")
+    nn_shapes, seg_shapes = phase_slice_shapes(dev)
+    timing[NN_EXACT.name].update(nn_shapes, max_abs_err=max(
+        timing[NN_EXACT.name]["max_abs_err"], nn_shapes["max_abs_err"]))
+    timing[SEGSUM.name].update(seg_shapes, max_abs_err=max(
+        timing[SEGSUM.name]["max_abs_err"], seg_shapes["autoencoder_stream"]["max_abs_err"]))
+    print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch, "
+          "autoencoder, active environment")
     paths, launches = phase_main_paths(dev)
+    launches["env"], greedy_selection = phase_env(dev)
     print("== 5 outputs")
     phase_outputs(paths)
     print("== 6 profile")
     for label, (engine, batch) in paths.items():
-        phase_profile(engine, batch, label)
+        gen = engine.step_generator(200)
+        phase_profile(lambda: engine.train_step(batch, gen), f"{label} train step")
+    phase_profile(greedy_selection, "env greedy selection (every grasp scored)")
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     sources = {

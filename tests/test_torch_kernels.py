@@ -273,3 +273,41 @@ def test_interpolate_backward_on_card_is_one_segsum_launch(cuda_device, name):
     ref = interpolate_backward_float64(case)
     scale = interpolate_backward_float64(dict(case, w=np.abs(case["w"]), g=np.abs(case["g"])))
     assert (np.abs(dv.cpu().numpy() - ref) <= 1e-5 * (1 + scale)).all()
+
+
+# (B, N) x M of the autoencoder's loss (48 folded clouds of 30k samples of
+# the deformed mesh against the 6400 decoded points, both ways) and of one
+# chunk of the environment's candidate scores (3 elements x 10 candidates
+# x 3 repeats, 30k points against 30k)
+SLICE_NN_SHAPES = ((48, 30000, 6400), (48, 6400, 30000), (90, 30000, 30000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", SLICE_NN_SHAPES, ids=lambda v: str(v))
+def test_nn_kernel_matches_plain_at_autoencoder_and_env_shapes_on_card(cuda_device, b, n, m):
+    """K1 at the autoencoder's and the environment's shapes: tolerance 0 on
+    distance and index."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + n + m)
+    x = torch.randn(b, n, 3, device=cuda_device, generator=g)
+    y = torch.randn(b, m, 3, device=cuda_device, generator=g) * 0.5
+    d, i = min_dists(x, y)
+    d_p, i_p = min_dists_plain(x, y)
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+
+
+@pytest.mark.cuda
+def test_segsum_kernel_matches_plain_on_the_autoencoder_stream_on_card(cuda_device):
+    """K2 on the autoencoder backward's stream: the argmins of 48 x 30000
+    samples into 6400 decoded points, sorted, into S = 6400 segments:
+    within 1e-5 * (1 + Σ|v| of the segment) of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(48, 30000, 3, device=cuda_device, generator=g)
+    y = torch.randn(48, 6400, 3, device=cuda_device, generator=g) * 0.5
+    _, ix = min_dists(x, y)
+    idx_s, perm = torch.sort(ix, dim=1, stable=True)
+    vals = torch.randn(48, 30000, 3, device=cuda_device, generator=g) * 1e-4
+    vals_s = torch.gather(vals, 1, perm[..., None].long().expand(-1, -1, 3)).contiguous()
+    out = segment_accumulate_sorted(idx_s.contiguous(), vals_s, 6400)
+    ref = segment_sum_plain(idx_s, vals_s, 6400)
+    scale = segment_sum_plain(idx_s, vals_s.abs(), 6400)
+    assert bool(((out - ref).abs() <= 1e-5 * (1 + scale)).all())

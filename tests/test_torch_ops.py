@@ -124,6 +124,31 @@ def test_chamfer_value_and_grads_match_jax(rng):
     np.testing.assert_allclose(cd_p.numpy(), cd_t.detach().numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("data", ["x", "y"])
+def test_chamfer_backward_skips_the_scatter_of_a_data_cloud(rng, monkeypatch, plain, data):
+    """With one cloud as data (no gradient), the backward makes one scatter,
+    not two, and the other cloud's gradient is bit for bit the one it gets
+    when both clouds need theirs."""
+    import active_3d_vision_and_touch_tpu_torch.ops.chamfer as chamfer_module
+
+    x, y = _clouds(rng, b=2, n=300, m=450)
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, size=(2,)).astype(np.float32))
+    xt, yt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(y).requires_grad_()
+    both = dict(zip("xy", torch.autograd.grad(chamfer_distance(xt, yt, plain=plain), (xt, yt), g)))
+    calls = []
+    name = "segment_sum_plain" if plain else "scatter_add_3"
+    scatter = getattr(chamfer_module, name)
+    monkeypatch.setattr(chamfer_module, name, lambda *a: calls.append(1) or scatter(*a))
+    clouds = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+    learned = "y" if data == "x" else "x"
+    clouds[learned].requires_grad_()
+    (grad,) = torch.autograd.grad(chamfer_distance(clouds["x"], clouds["y"], plain=plain),
+                                  clouds[learned], g)
+    assert len(calls) == 1
+    assert torch.equal(grad, both[learned])
+
+
 def test_interpolate_forward_and_backward_match_jax(rng):
     """The sorted-prefix custom backward against JAX's on the same idx/w:
     points and both cotangents to atol 1e-5."""
