@@ -350,7 +350,7 @@ class ActiveTouchEnv:
             raise RuntimeError(
                 f"ActiveTouchEnv: no touch signal for {missing[:3]} (of {len(missing)}): "
                 "neither in the chart cache nor from a simulator.  The port has no "
-                "simulator of its own until sim/ is ported (ROADMAP.md §1 item 12): pass "
+                "simulator of its own until sim/ is ported (ROADMAP.md §1 item 1): pass "
                 "chart_cache_root holding these objects' touch_charts.npy, or a sampler"
             )
         b = self.config.env_batch_size

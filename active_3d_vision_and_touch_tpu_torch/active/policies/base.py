@@ -30,7 +30,8 @@ from active_3d_vision_and_touch_tpu_torch.train.vision import build_deformation
 # reconstruction's architecture and setting
 _VISION_FIELDS = (
     "use_img", "use_touch", "finger", "num_grasps", "num_gcn_layers",
-    "hidden_gcn_size", "cut", "num_cnn_blocks", "layers_per_block", "cnn_kernel",
+    "hidden_gcn_size", "cut", "touch_global", "touch_plane", "num_cnn_blocks",
+    "layers_per_block", "cnn_kernel",
 )
 
 
@@ -75,21 +76,26 @@ class PolicyEngine:
         config: PolicyConfig,
         data_root: str | None = None,
         env: ActiveTouchEnv | None = None,
-        device="cuda",
+        device=None,
     ):
         """Without ``env``, the frozen models come from their checkpoints
         and the env reads its touch signals from ``data_root``'s chart
-        cache (the port has no simulator yet)."""
+        cache (the port has no simulator yet).  ``device`` is where the
+        env is built and where a learned policy keeps its nets: by default
+        the given env's device, else the card."""
         self.config = config
         self.data_root = data_root
+        if device is None:
+            device = env.device if env is not None else "cuda"
+        self.device = resolve_device(device)
         os.makedirs(config.checkpoint_dir, exist_ok=True)
         os.makedirs(config.results_dir, exist_ok=True)
         if not config.eval:
             save_config(config.checkpoint_dir, config)
         if env is None:
             env = ActiveTouchEnv(
-                config, *load_frozen_models(config, device),
-                chart_cache_root=data_root, device=device,
+                config, *load_frozen_models(config, self.device),
+                chart_cache_root=data_root, device=self.device,
             )
         self.env = env
 
@@ -125,5 +131,5 @@ class PolicyEngine:
         if self.config.visualize:
             raise NotImplementedError(
                 f"visualize=True: the action plots need utils/viz.py, not ported yet "
-                f"(ROADMAP.md §1 item 12); the results are saved in {self.config.results_dir}"
+                f"(ROADMAP.md §1 item 3); the results are saved in {self.config.results_dir}"
             )

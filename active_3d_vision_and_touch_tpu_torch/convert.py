@@ -1,12 +1,13 @@
 """Carry the flax models' variables over to the port's modules.
 
-:func:`deformation_from_flax`, :func:`touch_encoder_from_flax` and
-:func:`autoencoder_from_flax` take the flax ``params`` (and ``batch_stats``)
-trees as nested dicts of numpy arrays (``jax.device_get`` of the JAX
-package's state), so this module never sees JAX, and return a
-``state_dict`` for :class:`models.vision.Deformation`,
-:class:`models.touch.TouchChartEncoder` and
-:class:`models.autoencoder.MeshAutoEncoder`.
+:func:`deformation_from_flax`, :func:`touch_encoder_from_flax`,
+:func:`autoencoder_from_flax` and :func:`value_net_from_flax` take the flax
+``params`` (and ``batch_stats``) trees as nested dicts of numpy arrays
+(``jax.device_get`` of the JAX package's state), so this module never sees
+JAX, and return a ``state_dict`` for :class:`models.vision.Deformation`,
+:class:`models.touch.TouchChartEncoder`,
+:class:`models.autoencoder.MeshAutoEncoder` and the value nets of
+:mod:`models.policy_nets`.
 
 Layouts: a Dense kernel (in, out) becomes ``Linear.weight`` (out, in); a
 Conv kernel HWIO becomes OIHW; ``GCNLayer.weight`` stays (in, out); an Embed
@@ -117,6 +118,21 @@ def _map_autoencoder(path: tuple, value: np.ndarray):
     return None
 
 
+def _map_value_net(path: tuple, value: np.ndarray):
+    top, *rest = path
+    if top == "ActionMaskEmbed_0" and len(rest) == 2:
+        return _layer("mask_embed.", *rest, value, {"Dense": "dense"})
+    if top == "PositionalEncoder_0" and len(rest) == 2:
+        return _layer("positional.", *rest, value, {"Dense": "layers"})
+    if top == "MaskEncoder_0" and rest == ["Embed_0", "embedding"]:
+        return "mask_enc.embed.weight", value
+    if top.startswith("GCNLayer") and len(rest) == 1 and rest[0] in ("weight", "bias"):
+        return f"gcn.layers.{_index(top, 'GCNLayer')}.{rest[0]}", value
+    if len(rest) == 1:
+        return _layer("", top, rest[0], value, {"Dense": "dense"})
+    return None
+
+
 def _convert(params: dict, batch_stats: dict | None, map_leaf) -> dict:
     leaves = _flatten(params)
     leaves.update(_flatten(batch_stats or {}))
@@ -148,3 +164,9 @@ def autoencoder_from_flax(params: dict) -> dict:
     """flax ``MeshAutoEncoder`` params → torch ``state_dict`` (the model
     has no batch statistics)."""
     return _convert(params, None, _map_autoencoder)
+
+
+def value_net_from_flax(params: dict) -> dict:
+    """flax ``LatentValueNet`` or ``GraphValueNet`` params → torch
+    ``state_dict`` of the same net of :mod:`models.policy_nets`."""
+    return _convert(params, None, _map_value_net)

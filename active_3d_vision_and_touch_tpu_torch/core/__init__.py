@@ -9,6 +9,10 @@ from active_3d_vision_and_touch_tpu_torch.core.camera import PinholeCamera  # no
 from active_3d_vision_and_touch_tpu_torch.core.mesh import (  # noqa: F401
     TOUCH_CHART_CENTER,
     Mesh,
+    add_reverse_faces,
+    load_obj,
+    save_obj,
+    scale_points,
     touch_chart,
     vision_charts,
 )

@@ -4,7 +4,8 @@ The port's own copy of the JAX package's ``core/config.py`` (the port
 imports nothing of that package).  Defaults are identical, including
 ``loss_nn="clustered"``, so a config file written by either package
 rebuilds the same experiment in the other; ``load_config`` drops the
-fields the port does not have yet.  One default differs on purpose:
+fields the port does not have (``PolicyConfig.result_tag``).  One default
+differs on purpose:
 ``AutoencoderConfig.loss_nn`` is ``"exact"``, because the clustered loss
 passes no gradient to the cloud the autoencoder decodes (see
 ``train/autoencoder.py``).  The settings keep their
@@ -139,16 +140,38 @@ class AutoencoderConfig(VisionConfig):
 
 @dataclass
 class PolicyConfig(VisionConfig):
-    """Defaults of the non-learned active policies (reference
-    ``policies/*/train.py`` arg blocks).  The learned policies' fields
-    (DDQN, supervised) come with their engines; ``load_config`` drops them
-    from a JAX-written file until then."""
+    """Defaults of the active policies (reference ``policies/*/train.py``
+    arg blocks), the learned ones' included."""
 
     env_batch_size: int = 3
     budget: int = 5
     num_grasps: int = 5
     use_latent: bool = False
+    use_recon: bool = False
     touch_location: str = ""
     vision_location: str = ""
     auto_location: str = ""
+    # the value nets take the reference's per-setting sizes (ddqn.py)
+    pretrained_recon: bool = True
     greedy_checks: int = 50
+    # DDQN (reference DDQN/train.py:400-527)
+    epsilon_start: float = 1.0
+    epsilon_decay: float = 0.9999
+    epsilon_end: float = 0.01
+    mem_capacity: int = 300
+    burn_in: int = 20
+    train_batch_size: int = 16
+    gamma: float = 0.0
+    target_update: int = 3000
+    normalization: str = "first"
+    hidden_dim: int = 300
+    layers: int = 5
+    normalize: bool = False
+    epochs: int = 1000
+    # the supervised policy: probe actions per step, the selection rule
+    # ("argmin" as the reference, which regresses an improvement and picks
+    # its least; "argmax" picks the greatest), and epochs per step (more
+    # than 1 selects each step's model by a validation rollout)
+    training_actions: int = 5
+    supervised_select: str = "argmin"
+    supervised_epochs: int = 1

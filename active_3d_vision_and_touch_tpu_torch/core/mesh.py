@@ -1,8 +1,9 @@
-"""Canonical chart geometry: the touch chart and the vision chart atlas.
+"""Mesh primitives: OBJ I/O and the canonical chart geometry.
 
 The port's own numpy copy of the JAX package's ``core/mesh.py``
-(``touch_chart``, ``vision_charts``, ``_grid_faces``); the vertex and face
-arrays are bit-identical, which the parity tests rely on.
+(``load_obj``, ``save_obj``, ``touch_chart``, ``vision_charts``,
+``scale_points``, ``add_reverse_faces``); the vertex and face arrays are
+bit-identical, which the parity tests rely on.
 
 - the *touch chart*: a 5x5-vertex square sheet (25 verts / 32 faces);
 - the *vision chart atlas*: a cube-sphere of 6 x 4 x 4 independent 4x4
@@ -36,6 +37,34 @@ class Mesh:
     @property
     def num_faces(self) -> int:
         return int(self.faces.shape[0])
+
+
+def load_obj(path: str) -> Mesh:
+    """A minimal wavefront OBJ reader: vertex positions (``v`` lines; ``vt``
+    and ``vn`` are skipped) and faces, a polygon fan-triangulated, a
+    ``v/vt/vn`` token read for its vertex index."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                verts.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                idx = [int(tok.split("/")[0]) for tok in line.split()[1:]]
+                # OBJ indices are 1-based
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0] - 1, idx[k] - 1, idx[k + 1] - 1])
+    return Mesh(np.array(verts, np.float32), np.array(faces, np.int32))
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray | None = None) -> None:
+    with open(path, "w") as f:
+        f.write(f"# {len(verts)} vertices\n")
+        for v in np.asarray(verts):
+            f.write("v %f %f %f\n" % tuple(float(x) for x in v[:3]))
+        if faces is not None and len(faces):
+            f.write(f"# {len(faces)} faces\n")
+            for face in np.asarray(faces):
+                f.write("f %d %d %d\n" % tuple(int(i) + 1 for i in face[:3]))
 
 
 def _grid_faces(n: int, flip: bool = False) -> np.ndarray:
@@ -118,3 +147,23 @@ def vision_charts(
     # by different cube-face parameterizations are bit-identical in float32
     verts = np.round(verts, 6).astype(np.float32)
     return Mesh(verts, np.concatenate(faces, axis=0))
+
+
+def scale_points(points: np.ndarray, scale: float = 1.0) -> np.ndarray:
+    """Center a point set and normalize its largest extent to 1/scale, as
+    the reference preprocesses its objects (``utility/utils.py:347-356``):
+    shift to the positive octant, divide by the global max and by
+    ``scale``, center each axis."""
+    points = np.array(points, np.float32)
+    points -= points.min(axis=0, keepdims=True)
+    points = points / points.max()
+    points = points / scale
+    points -= (points.max(axis=0, keepdims=True)) / 2.0
+    return points
+
+
+def add_reverse_faces(faces: np.ndarray) -> np.ndarray:
+    """Append reversed windings so that a one-sided rasterizer sees both
+    sides (reference ``utility/utils.py:337-345``)."""
+    f = np.asarray(faces)
+    return np.concatenate([f, f[:, [0, 2, 1]], f[:, [2, 1, 0]]], axis=0)

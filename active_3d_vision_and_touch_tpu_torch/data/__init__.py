@@ -1,6 +1,8 @@
 from active_3d_vision_and_touch_tpu_torch.data.datasets import (  # noqa: F401
     ActiveDataset,
     Loader,
+    TouchDataset,
+    VisionDataset,
     load_split,
     object_dirs,
 )

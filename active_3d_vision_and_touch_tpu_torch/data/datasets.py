@@ -1,11 +1,12 @@
-"""Host-side loading of the active policies' rollout objects.
+"""Host-side loading of the datasets of the three training stages.
 
-The port's own copy of the part of the JAX package's ``data/datasets.py``
-that the policies read (``object_dirs`` from its ``data/generation.py``,
-``load_split``, the object list, the array cache, ``ActiveDataset`` and the
-prefetching ``Loader``).  It is numpy only: batches are dicts of numpy
-arrays, which the environment moves to its device.  The touch and vision
-datasets are not here yet.
+The port's own copy of the JAX package's ``data/datasets.py``
+(``object_dirs`` from its ``data/generation.py``, ``load_split``, the
+object list, the array cache, ``TouchDataset``, ``VisionDataset``,
+``ActiveDataset`` and the prefetching ``Loader``), over the same on-disk
+layout.  It is numpy only: batches are dicts of numpy arrays, which the
+engines and the environment move to their device.  One difference: the
+vision dataset's training draw takes an optional ``seed``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import queue
 import random
 import threading
 import zlib
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 
@@ -82,6 +84,175 @@ def _object_names(root: str, split: str, limit: int | None = None) -> list[str]:
         for n in names
         if n in split_names and os.path.exists(os.path.join(pc, n + ".npy"))
     ]
+
+
+class TouchDataset:
+    """Items are the (object, grasp, finger) triples of the split's
+    objects that hold a touch (``grasp_info/<obj>/<grasp>/<finger>_touch.npy``
+    beside ``_points.npy`` and ``_ref_frame.npy``)."""
+
+    def __init__(
+        self,
+        root: str,
+        split: str = "recon_train",
+        num_samples: int = 4000,
+        limit: int | None = None,
+    ):
+        self.root = root
+        self.dirs = object_dirs(root)
+        self.num_samples = num_samples
+        self.items: list[tuple[str, str, str]] = []
+        for n in _object_names(root, split, limit):
+            for touch_file in sorted(
+                glob(os.path.join(self.dirs["grasp_info"], n, "*", "*_touch.npy"))
+            ):
+                grasp = os.path.basename(os.path.dirname(touch_file))
+                finger = os.path.basename(touch_file).split("_")[0]
+                self.items.append((n, grasp, finger))
+
+    def __len__(self):
+        return len(self.items)
+
+    def _standardize(self, points: np.ndarray, rng) -> np.ndarray:
+        """``num_samples`` of ``points``, drawn without repetition where
+        there are enough, the cloud repeated fourfold until there are."""
+        while points.shape[0] < self.num_samples:
+            points = np.concatenate([points] * 4)
+        return points[rng.permutation(points.shape[0])[: self.num_samples]]
+
+    def __getitem__(self, index: int) -> dict:
+        name, grasp, finger = self.items[index]
+        gdir = os.path.join(self.dirs["grasp_info"], name, grasp)
+        rng = np.random.default_rng(index)
+        touch = _array_cache.load(os.path.join(gdir, f"{finger}_touch.npy"))
+        points = _array_cache.load(os.path.join(gdir, f"{finger}_points.npy"))
+        ref = np.load(os.path.join(gdir, f"{finger}_ref_frame.npy"), allow_pickle=True).item()
+        return {
+            "names": (name, grasp, finger),
+            "sim_touch": touch.astype(np.float32) / 255.0,
+            "samples": self._standardize(points, rng).astype(np.float32),
+            "ref_pos": np.asarray(ref["pos"], np.float32),
+            "ref_rot": np.asarray(ref["rot"], np.float32),
+        }
+
+    @staticmethod
+    def collate(items: list[dict]) -> dict:
+        out = {"names": [it["names"] for it in items]}
+        for key in ("sim_touch", "samples", "ref_pos", "ref_rot"):
+            out[key] = np.stack([it[key] for it in items])
+        return out
+
+
+class VisionDataset:
+    """Per object: the image, the gt cloud and the padded touch-chart
+    slots of a draw of grasps.
+
+    Training draws a random object, a grasp count in [0, num_grasps] and
+    the grasp ids.  Outside training each object is drawn 5 times, each
+    draw fixed by (object, draw) (reference ``data_loaders.py:172-193``);
+    under ``eval_mode`` a ``val_grasps`` >= 0 fixes the count.  The
+    training draw comes from ``random.Random()`` (the operating system's
+    entropy), as in the JAX package, or, given a ``seed``, from a generator
+    seeded from (seed, item, how often the item was read), whatever the
+    loader's thread order.
+    """
+
+    def __init__(
+        self,
+        root: str,
+        split: str = "recon_train",
+        use_img: bool = True,
+        use_touch: bool = True,
+        finger: bool = False,
+        num_grasps: int = 5,
+        number_points: int = 30000,
+        num_actions: int = 50,
+        val_grasps: int = -1,
+        eval_mode: bool = False,
+        limit: int | None = None,
+        seed: int | None = None,
+    ):
+        self.root = root
+        self.dirs = object_dirs(root)
+        self.split = split
+        self.training = split in ("recon_train", "auto_train")
+        self.use_img = use_img
+        self.use_touch = use_touch
+        self.finger = finger
+        self.num_grasps = num_grasps
+        self.number_points = number_points
+        self.num_actions = num_actions
+        self.val_grasps = val_grasps
+        self.eval_mode = eval_mode
+        self.seed = seed
+        self._reads: Counter = Counter()
+        self._lock = threading.Lock()
+        base = _object_names(root, split, limit)
+        if use_touch:
+            base = [
+                n for n in base
+                if os.path.exists(os.path.join(self.dirs["touch_charts"], n, "touch_charts.npy"))
+            ]
+        iters = 1 if self.training else 5
+        self.items = [(n, s) for s in range(iters) for n in base]
+
+    def __len__(self):
+        return len(self.items)
+
+    def _train_rng(self, index: int) -> random.Random:
+        if self.seed is None:
+            return random.Random()
+        with self._lock:
+            reads = self._reads[index]
+            self._reads[index] += 1
+        return random.Random(zlib.crc32(f"{self.seed}:{index}:{reads}".encode()))
+
+    def _grasp_draw(self, index: int):
+        if self.training:
+            rng = self._train_rng(index)
+            name, _ = rng.choice(self.items)
+        else:
+            name, seed = self.items[index]
+            # stable across processes (python's str hash is salted)
+            rng = random.Random(zlib.crc32(f"{name}:{seed}".encode()))
+        if (not self.training) and self.eval_mode and self.val_grasps >= 0:
+            count = self.val_grasps
+        else:
+            count = rng.choice(range(0, self.num_grasps + 1))
+        grasps = list(range(self.num_actions))
+        rng.shuffle(grasps)
+        return name, grasps[:count]
+
+    def __getitem__(self, index: int) -> dict:
+        name, grasps = self._grasp_draw(index)
+        rng = np.random.default_rng(zlib.crc32(f"{name}:{index}".encode()))
+        data = {"names": (name, tuple(grasps))}
+        points = _array_cache.load(os.path.join(self.dirs["point_cloud_info"], name + ".npy"))
+        pick = rng.permutation(points.shape[0])[: self.number_points]
+        data["gt_points"] = points[pick].astype(np.float32)
+        if self.use_img:
+            img = _array_cache.load(os.path.join(self.dirs["images_colourful"], name + ".npy"))
+            data["img"] = img.astype(np.float32) / 255.0
+        if self.use_touch:
+            all_charts = _array_cache.load(
+                os.path.join(self.dirs["touch_charts"], name, "touch_charts.npy")
+            ).reshape(self.num_actions, 4, 25, 4)
+            picked = all_charts[grasps]  # (k, 4, 25, 4)
+            if self.finger:
+                picked = picked[:, 1]  # the canonical finger
+                pad = np.zeros((self.num_grasps - len(grasps), 25, 4), np.float32)
+            else:
+                pad = np.zeros((self.num_grasps - len(grasps), 4, 25, 4), np.float32)
+            data["touch_charts"] = np.concatenate([picked, pad]).astype(np.float32)
+        return data
+
+    @staticmethod
+    def collate(items: list[dict]) -> dict:
+        out = {"names": [it["names"] for it in items]}
+        for key in ("gt_points", "img", "touch_charts"):
+            if key in items[0]:
+                out[key] = np.stack([it[key] for it in items])
+        return out
 
 
 class ActiveDataset:

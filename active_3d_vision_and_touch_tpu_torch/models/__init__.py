@@ -10,6 +10,11 @@ from active_3d_vision_and_touch_tpu_torch.models.gcn import (  # noqa: F401
     MaskEncoder,
     PositionalEncoder,
 )
+from active_3d_vision_and_touch_tpu_torch.models.policy_nets import (  # noqa: F401
+    ActionMaskEmbed,
+    GraphValueNet,
+    LatentValueNet,
+)
 from active_3d_vision_and_touch_tpu_torch.models.touch import (  # noqa: F401
     DoubleConv,
     TouchChartEncoder,

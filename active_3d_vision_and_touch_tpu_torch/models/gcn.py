@@ -41,19 +41,24 @@ class _Bf16Matmul(torch.autograd.Function):
         return ga, gb
 
 
+def _folded_matmul(a: torch.Tensor, b: torch.Tensor, mm) -> torch.Tensor:
+    """(..., K) @ (K, N) or (V, V) @ (B, V, N) as one 2-D product ``mm``."""
+    if b.dim() == 2:
+        out = mm(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    # (V, V) @ (B, V, N) as one (V, V) @ (V, B*N) product
+    bsz, v, n = b.shape
+    out = mm(a, b.transpose(0, 1).reshape(v, bsz * n))
+    return out.reshape(v, bsz, n).transpose(0, 1)
+
+
 def _mxu_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The GCN's two products, as the JAX package runs them: float32 on the
     CPU; bf16 operands with float32 accumulation and a float32 result on an
     accelerator.  Takes (..., K) @ (K, N) or (V, V) @ (B, V, N)."""
     if a.device.type == "cpu":
         return a @ b
-    if b.dim() == 2:
-        out = _Bf16Matmul.apply(a.reshape(-1, a.shape[-1]), b)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    # (V, V) @ (B, V, N) as one (V, V) @ (V, B*N) product
-    bsz, v, n = b.shape
-    out = _Bf16Matmul.apply(a, b.transpose(0, 1).reshape(v, bsz * n))
-    return out.reshape(v, bsz, n).transpose(0, 1)
+    return _folded_matmul(a, b, _Bf16Matmul.apply)
 
 
 class GCNLayer(nn.Module):

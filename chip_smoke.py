@@ -24,7 +24,9 @@ package, and runs these phases in order; any failure exits non-zero:
    launches) and the chunk selection no slower than its torch-op version;
    the segment sum on the sampler backward's streams (the vision step's,
    the touch step's, and one face taking every sample); the exact search
-   and the segment sum at the autoencoder's and the environment's shapes;
+   and the segment sum at the autoencoder's and the environment's shapes,
+   the exact search also at the supervised probes' chunk and at one
+   observation of the policies;
 4. the main paths at full width, each from random weights made from the
    seed, with every launch counter set to 0 just before and read just
    after, and each kernel required to have run exactly as often as the path
@@ -40,15 +42,23 @@ package, and runs these phases in order; any failure exits non-zero:
    5, 30k points) reads a chart cache written from the seed, and runs a
    greedy episode (every grasp scored each step), an even rollout and a
    nearest-neighbour rollout through the policy engines; then one chunk of
-   candidate scores through the kernels and through the plain versions;
+   candidate scores through the kernels and through the plain versions.
+   The learned policies at the default policy configuration on that env:
+   DDQN over the latent and over the mesh (one training epoch of two env
+   batches, updates from the 7th step, one evaluation batch; one update on
+   the card against the same on the CPU; the checkpoint restored) and the
+   supervised policy (its nets of steps 0 and 1 at 5 probes, one
+   evaluation batch).  One ``fit`` epoch each of ``VisionEngine`` and
+   ``TouchEngine`` at their default configurations from loaders over the
+   JAX package's on-disk dataset layout, written from the seed;
 5. the outputs: the full-width losses with the kernels against the same
    step on the plain versions (the sampler's backward included) for the
    exact vision step and the autoencoder step, the sampler's backward alone
    at the step's shapes, the clustered Chamfer on the kernels against the
    same on the plain versions and against the exact loss, and small
    configurations on the card against the same ones on the CPU;
-6. a profile of one train step of each trainer, and of one greedy
-   selection of the environment, beside the same work without the
+6. a profile of one train step of each trainer, of one greedy selection
+   of the environment and of one DDQN training episode, beside the same work without the
    profiler: device time by kernel, the host's time in the launch calls and
    the time it waits for the card; no outer-dimension scan (a ``cumsum``
    over the sample axis, which the sampler's backward has no need of) may
@@ -59,9 +69,11 @@ package, and runs these phases in order; any failure exits non-zero:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -71,8 +83,10 @@ import numpy as np
 import torch
 
 from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
+from active_3d_vision_and_touch_tpu_torch.active.policies.ddqn import DDQNEngine
 from active_3d_vision_and_touch_tpu_torch.active.policies.nearest import NearestNeighborEngine
 from active_3d_vision_and_touch_tpu_torch.active.policies.simple import EvenEngine
+from active_3d_vision_and_touch_tpu_torch.active.policies.supervised import SupervisedEngine
 from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, touch_chart, vision_charts
 from active_3d_vision_and_touch_tpu_torch.core.config import (
     AutoencoderConfig,
@@ -80,7 +94,14 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
     TouchConfig,
     VisionConfig,
 )
-from active_3d_vision_and_touch_tpu_torch.data import ActiveDataset, Loader, object_dirs
+from active_3d_vision_and_touch_tpu_torch.data import (
+    ActiveDataset,
+    Loader,
+    TouchDataset,
+    VisionDataset,
+    object_dirs,
+)
+from active_3d_vision_and_touch_tpu_torch.models import gcn as gcn_module
 from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
 from active_3d_vision_and_touch_tpu_torch.ops import (
     KERNELS,
@@ -151,10 +172,14 @@ K1_TARGET_MS = {
     "the touch shape (192, 4000)x4000": 1.25,
     "the autoencoder shape (48, 30000)x6400": 3.2,
     "the env chunk shape (90, 30000)x30000": 28.0,
+    "the supervised probe chunk shape (45, 30000)x30000": 14.0,
+    "the observation shape (9, 30000)x30000": 4.0,
 }
-# the autoencoder's decoded points (its 80 x 80 folding grid), and the
+# the autoencoder's decoded points (its 80 x 80 folding grid), the
 # environment's candidates per scoring pass (score_candidates' default chunk)
-AE_POINTS, ENV_CHUNK = 80 * 80, 10
+# and the supervised policy's probes (PolicyConfig.training_actions), which
+# make a chunk of their own
+AE_POINTS, ENV_CHUNK, PROBES = 80 * 80, 10, 5
 # the same for K3, either way, and for the chunk selection of one loss (both
 # directions, with the torch ops that feed the kernel)
 K3_TARGET_MS = 1.50
@@ -816,8 +841,10 @@ def phase_slice_shapes(dev: torch.device) -> tuple[dict, dict]:
     decoded points, both ways, and its backward one segment sum of the
     samples' argmins into the decoded points; one chunk of the
     environment's candidate scores holds 3 objects x 10 candidates x 3
-    repeats of 30k samples against the gt clouds.  Returns K1's and K2's
-    numbers."""
+    repeats of 30k samples against the gt clouds, and the supervised
+    policy's chunk of probes 3 objects x 5 probes x 3 repeats; one
+    observation (an env reset or step, the most of the policies' launches)
+    holds 3 objects x 3 repeats.  Returns K1's and K2's numbers."""
     g = torch.Generator(device=dev).manual_seed(3)
     n = MAIN["number_points"]
     atlas = vision_charts()
@@ -833,9 +860,20 @@ def phase_slice_shapes(dev: torch.device) -> tuple[dict, dict]:
     decoded = (torch.randn(16, AE_POINTS, 3, device=dev, generator=g) * 0.1).repeat(REPEAT, 1, 1)
     err = max(check_nn(preds, decoded, "autoencoder x->y"), check_nn(decoded, preds, "autoencoder y->x"))
     env_preds = folded(3 * ENV_CHUNK)  # (90, 30k, 3)
-    env_gt = surface_clouds(3, n, g, dev).repeat_interleave(ENV_CHUNK, 0).repeat(REPEAT, 1, 1)
+    gt3 = surface_clouds(3, n, g, dev)
+    env_gt = gt3.repeat_interleave(ENV_CHUNK, 0).repeat(REPEAT, 1, 1)
     err = max(err, check_nn(env_preds, env_gt, "env chunk x->y"),
               check_nn(env_gt, env_preds, "env chunk y->x"))
+    # the supervised policy's probes: 3 objects x 5 candidates x 3 repeats
+    probe_preds = folded(3 * PROBES)  # (45, 30k, 3)
+    probe_gt = gt3.repeat_interleave(PROBES, 0).repeat(REPEAT, 1, 1)
+    err = max(err, check_nn(probe_preds, probe_gt, "probe chunk x->y"),
+              check_nn(probe_gt, probe_preds, "probe chunk y->x"))
+    # one observation: 3 objects x 3 repeats, under one wave of the card
+    obs_preds = folded(3)  # (9, 30k, 3)
+    obs_gt = gt3.repeat(REPEAT, 1, 1)
+    err = max(err, check_nn(obs_preds, obs_gt, "observation x->y"),
+              check_nn(obs_gt, obs_preds, "observation y->x"))
 
     # the backward's stream: the samples' argmins into the decoded points
     _, ix = min_dists(preds, decoded)
@@ -845,23 +883,39 @@ def phase_slice_shapes(dev: torch.device) -> tuple[dict, dict]:
     seg_err = check_segsum(idx_s.contiguous(), vals_s, AE_POINTS, "autoencoder stream", twice=True)
 
     nn = {"autoencoder_shape": time_nn(preds, decoded, 5),
-          "env_chunk_shape": time_nn(env_preds, env_gt, 2), "max_abs_err": err}
+          "env_chunk_shape": time_nn(env_preds, env_gt, 2),
+          "probe_chunk_shape": time_nn(probe_preds, probe_gt, 2),
+          "observation_shape": time_nn(obs_preds, obs_gt, 5), "max_abs_err": err}
     seg = {"autoencoder_stream": {**time_segsum(idx_s.contiguous(), vals_s, AE_POINTS),
                                   "max_abs_err": seg_err}}
     print_nn("the autoencoder shape (48, 30000)x6400", nn["autoencoder_shape"])
     print_nn("the env chunk shape (90, 30000)x30000", nn["env_chunk_shape"])
+    print_nn("the supervised probe chunk shape (45, 30000)x30000", nn["probe_chunk_shape"])
+    print_nn("the observation shape (9, 30000)x30000", nn["observation_shape"])
     print_segsum(f"the autoencoder stream (48, 30000)->S={AE_POINTS}", seg["autoencoder_stream"])
     return nn, seg
+
+
+def count_from_zero() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_counts(label: str, expected: dict, held: int) -> dict:
+    launches = {k.name: k.launches for k in KERNELS}
+    print(f"  [{label}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"({held / 2**30:.3f} GiB held before the path)  launches {launches}")
+    check(launches == expected, f"unexpected kernel launches on the {label} path: {launches}")
+    return launches
 
 
 def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
     """1 warm-up + 3 train steps + 1 eval step with the launch counters set
     to 0 just before and read just after; returns the counts by kernel."""
     held = torch.cuda.memory_allocated()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        k.launches = 0
+    count_from_zero()
     losses, step_ms = [], []
     for step in range(4):  # 1 warm-up + 3 measured
         t0 = time.perf_counter()
@@ -871,15 +925,12 @@ def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
     t0 = time.perf_counter()
     eval_loss = float(engine.eval_step(batch, engine.step_generator(100)))
     eval_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k.name: k.launches for k in KERNELS}
 
     print(f"  [{label}] train losses {losses}  eval loss {eval_loss}")
     print(f"  [{label}] train step ms {[round(t, 3) for t in step_ms]}  median of 3 after warm-up "
           f"{float(np.median(step_ms[1:])):.3f}  eval step ms {eval_ms:.3f}")
-    print(f"  [{label}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-          f"({held / 2**30:.3f} GiB held before the path)  launches {launches}")
+    launches = read_counts(label, expected, held)
     check(all(np.isfinite(losses + [eval_loss])), f"non-finite loss on the {label} path")
-    check(launches == expected, f"unexpected kernel launches on the {label} path: {launches}")
     return launches
 
 
@@ -933,43 +984,59 @@ def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
     return paths, launches
 
 
-def write_active_world(root: Path, cfg: PolicyConfig, dev: torch.device) -> None:
-    """A dataset root the policies read, made from the seed: for each of
-    ``env_batch_size`` objects (all in the split "test") a 256x256 image,
-    a surface-like gt cloud of ``number_points`` points, and a chart cache
-    of ``num_actions`` grasps x 4 fingers in which every grasp holds the
-    three mask codes: two fingers touching (a small sheet about a point of
-    the cloud), one not (collapsed onto its position), one failing."""
-    rng = np.random.default_rng(0)
+def chart_cache(cloud: np.ndarray, num_actions: int, rng) -> np.ndarray:
+    """A chart cache (num_actions, 4 fingers, 25, xyz | code) in which every
+    grasp holds the three mask codes: two fingers touching (a small sheet
+    about a point of the cloud), one not (collapsed onto its position), one
+    failing."""
+    charts = np.zeros((num_actions, 4, 25, 4), np.float32)
+    for a in range(num_actions):
+        for f, code in enumerate(rng.permutation([0, 1, 2, 2])):
+            pos = cloud[rng.integers(len(cloud))]
+            if code == 2:
+                charts[a, f, :, :3] = pos + rng.normal(size=(25, 3)) * 0.003
+            elif code == 1:
+                charts[a, f, :, :3] = pos
+            charts[a, f, :, 3] = code
+    return charts
+
+
+def write_objects(root: Path, names: list, cfg: VisionConfig, dev: torch.device, seed: int):
+    """Per object, made from ``seed``: a 256x256 image, a surface-like gt
+    cloud of ``number_points`` points and a chart cache of ``num_actions``
+    grasps, in the dataset layout the port reads.  Returns the clouds."""
+    rng = np.random.default_rng(seed)
     dirs = object_dirs(str(root))
     for d in dirs.values():
         Path(d).mkdir(parents=True, exist_ok=True)
-    b = cfg.env_batch_size
-    names = [f"object_{i:03d}" for i in range(b)]
-    clouds = surface_clouds(b, cfg.number_points, torch.Generator(device=dev).manual_seed(4), dev)
-    for name, cloud in zip(names, clouds.cpu().numpy()):
+    clouds = surface_clouds(len(names), cfg.number_points,
+                            torch.Generator(device=dev).manual_seed(seed + 4), dev).cpu().numpy()
+    for name, cloud in zip(names, clouds):
         np.save(Path(dirs["images_colourful"]) / f"{name}.npy",
                 rng.integers(0, 256, size=(256, 256, 3)).astype(np.uint8))
         np.save(Path(dirs["point_cloud_info"]) / f"{name}.npy", cloud)
-        charts = np.zeros((cfg.num_actions, 4, 25, 4), np.float32)
-        for a in range(cfg.num_actions):
-            for f, code in enumerate(rng.permutation([0, 1, 2, 2])):
-                pos = cloud[rng.integers(len(cloud))]
-                if code == 2:
-                    charts[a, f, :, :3] = pos + rng.normal(size=(25, 3)) * 0.003
-                elif code == 1:
-                    charts[a, f, :, :3] = pos
-                charts[a, f, :, 3] = code
         (Path(dirs["touch_charts"]) / name).mkdir(exist_ok=True)
-        np.save(Path(dirs["touch_charts"]) / name / "touch_charts.npy", charts)
-    np.save(root / "data_split.npy", {"test": names})
+        np.save(Path(dirs["touch_charts"]) / name / "touch_charts.npy",
+                chart_cache(cloud, cfg.num_actions, rng))
+    return clouds
 
 
-def phase_env(dev: torch.device) -> tuple[dict, object]:
+def write_active_world(root: Path, cfg: PolicyConfig, dev: torch.device) -> None:
+    """The dataset root the policies read: ``env_batch_size`` objects in the
+    splits "test" and "valid", and as many more in "RL_train" beside them,
+    so that a training epoch is two env batches."""
+    b = cfg.env_batch_size
+    names = [f"object_{i:03d}" for i in range(2 * b)]
+    write_objects(root, names[:b], cfg, dev, seed=0)
+    write_objects(root, names[b:], cfg, dev, seed=1)
+    np.save(root / "data_split.npy", {"test": names[:b], "valid": names[:b], "RL_train": names})
+
+
+def phase_env(dev: torch.device) -> tuple[dict, ActiveTouchEnv]:
     """The active environment at the default policy configuration with the
     latent observation, on a full-width frozen vision model and autoencoder
     from the seed, through the policy engines as a user runs them.  Returns
-    the launches and a greedy selection to profile."""
+    the launches and the env."""
     cfg = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
     root = Path(EXPERIMENTS) / "active_world"
     write_active_world(root, cfg, dev)
@@ -982,10 +1049,7 @@ def phase_env(dev: torch.device) -> tuple[dict, object]:
     chunks = -(-cfg.num_actions // ENV_CHUNK)
 
     held = torch.cuda.memory_allocated()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        k.launches = 0
+    count_from_zero()
     t0 = time.perf_counter()
     obs = env.reset(batch)
     reset_ms = (time.perf_counter() - t0) * 1e3
@@ -1008,8 +1072,6 @@ def phase_env(dev: torch.device) -> tuple[dict, object]:
     t0 = time.perf_counter()
     nearest_result = nearest.evaluate("test", max_batches=1)
     nearest_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k.name: k.launches for k in KERNELS}
-    peak = torch.cuda.max_memory_allocated() / 2**30
 
     # each observation and each chunk of candidates is one exact Chamfer
     # distance: 2 NN launches, and no backward
@@ -1026,11 +1088,9 @@ def phase_env(dev: torch.device) -> tuple[dict, object]:
     print(f"  [env] even rollout {even_ms:.3f} ms ({even_result.pct_cd_remaining:.3f}% left), "
           f"nearest-neighbour rollout {nearest_ms:.3f} ms ({nearest_result.pct_cd_remaining:.3f}% left) "
           f"from a bank of {len(bank)} latents")
-    print(f"  [env] peak memory {peak:.3f} GiB ({held / 2**30:.3f} GiB held before the path)  "
-          f"launches {launches}")
+    launches = read_counts("env", expected, held)
     finite = [greedy, even_result.scores, nearest_result.scores]
     check(all(np.isfinite(a).all() for a in finite), "non-finite score on the env path")
-    check(launches == expected, f"unexpected kernel launches on the env path: {launches}")
 
     # one chunk of candidate scores with the same draws through K1 and
     # through the plain version: the same scores (K1 is bit-exact)
@@ -1051,7 +1111,309 @@ def phase_env(dev: torch.device) -> tuple[dict, object]:
           f"versions, largest relative difference {rel:.3e}")
     check(np.isfinite(on_kernels).all() and rel <= 1e-6, "env candidate scores: kernels != plain")
     env.reset(batch)
-    return launches, env.best_action
+    return launches, env
+
+
+class Timed:
+    """Replaces ``obj.name`` with a wrapper that records each call's
+    host-clock time in ms (the wrapped calls return host values, so each
+    ends with the card's work done); the original comes back on exit."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.ms = obj, name, []
+
+    def __enter__(self):
+        fn = getattr(self.obj, self.name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.name)
+
+    def median(self) -> float:
+        return float(np.median(self.ms)) if self.ms else float("nan")
+
+
+class Bf16OnCpu(torch.autograd.Function):
+    """The card's GCN product (``models/gcn.py::_Bf16Matmul``) on the CPU:
+    the operands and the incoming gradient rounded to bf16, the products
+    summed in float32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.bfloat16().float(), b.bfloat16().float()
+        ctx.save_for_backward(a16, b16)
+        return a16 @ b16
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        g16 = g.bfloat16().float()
+        return g16 @ b16.T, a16.T @ g16
+
+
+def bf16_on_cpu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``models/gcn.py::_mxu_matmul``'s card path on the CPU: its fold of
+    the batch, with Bf16OnCpu as the 2-D product."""
+    return gcn_module._folded_matmul(a, b, Bf16OnCpu.apply)
+
+
+def check_update_against_cpu(engine: DDQNEngine, label: str, tol: dict, cpu_matmul=None) -> None:
+    """One DDQN update on the card against the same update on the CPU, from
+    the same weights, optimizer state and replay batch: the loss, the
+    clamped gradients (the norm of the difference over the norm, of all
+    parameters and of the worst tensor), and the values of the two updated
+    nets on the batch, computed on the CPU, each within ``tol`` (a limit of
+    None prints that number and holds nothing to it); the
+    parameters after the step within 2 x lr of each other (an Adam step
+    moves a parameter by about lr, whatever the size of its gradient).
+    ``cpu_matmul`` replaces the GCN's products in the CPU's update."""
+    cpu = copy.copy(engine)
+    cpu.device = torch.device("cpu")
+    cpu.model = copy.deepcopy(engine.model).cpu()
+    cpu.target_model = copy.deepcopy(engine.target_model).cpu()
+    cpu.optimizer = torch.optim.Adam(cpu.model.parameters(), lr=engine.config.lr)
+    # a copy: loading keeps a tensor already on the CPU, and the card's
+    # step would then move the CPU optimizer's state too
+    cpu.optimizer.load_state_dict(copy.deepcopy(engine.optimizer.state_dict()))
+    cpu.adj = None if engine.adj is None else engine.adj.cpu()
+    batch = engine.replay.sample()
+    loss_card = float(engine.update_on(batch))
+    plain_matmul = gcn_module._mxu_matmul
+    gcn_module._mxu_matmul = cpu_matmul or plain_matmul
+    try:
+        loss_cpu = float(cpu.update_on(batch))
+    finally:
+        gcn_module._mxu_matmul = plain_matmul
+    names = [n for n, _ in cpu.model.named_parameters()]
+    grads = [(a.grad.cpu(), b.grad) for a, b in zip(engine.model.parameters(), cpu.model.parameters())]
+    ratios = {n: float((a - b).norm() / (b.norm() + 1e-30)) for n, (a, b) in zip(names, grads)}
+    worst = max(ratios, key=ratios.get)
+    diff = torch.cat([(a - b).flatten() for a, b in grads])
+    overall = float(diff.norm() / torch.cat([b.flatten() for _, b in grads]).norm())
+    moved = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(engine.model.parameters(), cpu.model.parameters()))
+    with torch.no_grad():
+        q_card = copy.deepcopy(engine.model).cpu()(*cpu._inputs(batch))
+        q_cpu = cpu.model(*cpu._inputs(batch))
+    q_err = float((q_card - q_cpu).abs().max() / q_cpu.abs().max())
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    against = "the card's bf16 products" if cpu_matmul else "float32"
+    held = "" if tol["grads"] is not None else " (printed, not held)"
+    print(f"  [{label}] one update, card against CPU ({against}): loss {loss_card} / {loss_cpu} "
+          f"(rel {rel:.2e}); clamped gradients{held}, difference over norm: all {overall:.2e}, worst "
+          f"tensor {worst} {ratios[worst]:.2e}; the updated nets' values on the batch "
+          f"{q_err:.2e} of the largest; largest parameter difference after the step {moved:.2e} "
+          f"(lr {engine.config.lr})")
+    within = lambda x, key: tol[key] is None or x <= tol[key]  # noqa: E731
+    check(within(rel, "loss") and within(overall, "grads") and within(ratios[worst], "tensor")
+          and within(q_err, "values"), f"{label}: the update on the card != on the CPU ({against})")
+    check(moved <= 2 * engine.config.lr, f"{label}: the parameters after the update differ")
+
+
+def phase_policies(dev: torch.device, env: ActiveTouchEnv) -> tuple[dict, object]:
+    """The learned policies at the default policy configuration, through
+    their engines on the env of phase_env: DDQN over the latent (a 300 x 5
+    value net) and over the mesh (a 100 x 5 GCN over the 2036-vertex atlas)
+    each train one epoch of two env batches (10 env steps: updates from the
+    7th, at the default burn-in of 20 transitions and batch 16) and evaluate
+    one batch; the supervised policy trains its nets of steps 0 and 1 at 5
+    probes and evaluates one batch.  Returns the launches by path and one
+    DDQN episode to profile."""
+    root = str(Path(EXPERIMENTS) / "active_world")
+    base = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
+    b, budget = base.env_batch_size, base.budget
+    batch = list(Loader(ActiveDataset(root, "test", number_points=base.number_points,
+                                      env_batch_size=b), b, shuffle=False))[0]
+    launches, episode = {}, None
+    none = {k.name: 0 for k in KERNELS}
+    # float32 products on both sides, except the GCN's: bf16 operands on the
+    # card.  A gradient carries the residual q - target, a small difference
+    # of values of order 1, where bf16's relative error in q grows.  On an
+    # H100, against float32 on the CPU: the loss 1.8e-3 apart, the clamped
+    # gradients 2.5e-1 of their norm (5.1e-1 in one tensor), the updated
+    # nets' values 1.5e-2; so that comparison holds only the loss and the
+    # values, at bf16's size, and prints the gradients' differences.  The
+    # gradient check is the one against the card's own bf16 rounding on the
+    # CPU (Bf16OnCpu): 2.6e-4, 1.2e-2 (1.7e-2) and 1.7e-4, from the order
+    # of the sums, the sine's last bits and the bf16 roundings they flip
+    float32_only = [(None, dict(loss=1e-4, grads=1e-4, tensor=1e-4, values=1e-4))]
+    with_bf16 = [(None, dict(loss=2e-2, grads=None, tensor=None, values=5e-2)),
+                 (bf16_on_cpu, dict(loss=2e-3, grads=5e-2, tensor=1e-1, values=2e-3))]
+    for label, extra, comparisons in (
+        ("ddqn latent", dict(use_latent=True), float32_only),
+        ("ddqn mesh", dict(use_latent=False, use_recon=True), with_bf16),
+    ):
+        cfg = dataclasses.replace(base, exp_id=label.replace(" ", "_"), **extra)
+        held = torch.cuda.memory_allocated()
+        count_from_zero()
+        engine = DDQNEngine(cfg, root, env=env)  # the default device: the card
+        check(not engine.ckpt.exists("recent"), f"{label}: a checkpoint was there before")
+        with Timed(env, "step") as steps, Timed(engine, "update_parameters") as updates:
+            stats = engine.train_epoch()
+        result = engine.evaluate("test", max_batches=1)
+        # 2 NN launches an observation: 2 train episodes and 1 eval episode
+        # of 1 + budget observations; no candidates, no backward
+        launches[label] = read_counts(label, {**none, NN_EXACT.name: 2 * 3 * (1 + budget)}, held)
+        # the first update comes at the env step whose transitions reach
+        # max(burn_in, batch): the 7th at 3 a step
+        first = -(-max(cfg.burn_in, cfg.train_batch_size) // b)
+        updated = updates.ms[first - 1:]
+        print(f"  [{label}] {cfg.hidden_dim} x {cfg.layers} net: train epoch loss {stats['loss']} "
+              f"reward {stats['reward']} epsilon {stats['epsilon']}; eval "
+              f"{result.pct_cd_remaining:.3f}% of the first score left")
+        print(f"  [{label}] env step ms median {steps.median():.3f} of {len(steps.ms)}; update ms "
+              f"median {float(np.median(updated)):.3f} of {len(updated)} (replay sample, update, loss "
+              f"to the host)")
+        check(first == 7 and engine.replay.count_seen == 2 * budget * b,
+              f"{label}: not the expected updates")
+        check(all(np.isfinite([stats["loss"], stats["reward"]])) and np.isfinite(result.scores).all(),
+              f"{label}: non-finite loss, reward or score")
+        again = DDQNEngine(cfg, root, env=env)
+        same = all(torch.equal(x, y) for x, y in zip(
+            again.target_model.state_dict().values(), engine.target_model.state_dict().values()))
+        check(same and (again.epsilon, again.total_steps, again.episodes)
+              == (engine.epsilon, engine.total_steps, engine.episodes)
+              and all(np.array_equal(again.replay.data[k], v) for k, v in engine.replay.data.items()),
+              f"{label}: the checkpoint does not restore the engine")
+        print(f"  [{label}] checkpoint restored: epsilon {again.epsilon}, {again.total_steps} steps, "
+              f"{again.episodes} episodes, {again.replay.count_seen} transitions")
+        for cpu_matmul, tol in comparisons:
+            check_update_against_cpu(engine, label, tol, cpu_matmul)
+        if episode is None:
+            episode = ddqn_episode(engine, env, batch)
+
+    cfg = dataclasses.replace(base, exp_id="supervised")
+    held = torch.cuda.memory_allocated()
+    count_from_zero()
+    engine = SupervisedEngine(cfg, root, env=env)
+    levels = []
+    for step in (0, 1):
+        t0 = time.perf_counter()
+        loss = engine.train_step_level(step)
+        levels.append((time.perf_counter() - t0) * 1e3)
+        check(np.isfinite(loss), f"supervised: non-finite loss at step {step}")
+        print(f"  [supervised] level {step}: loss {loss} in {levels[-1]:.3f} ms")
+    result = engine.evaluate("test", max_batches=1)
+    check(np.isfinite(result.scores).all(), "supervised: non-finite score")
+    # per level and train batch: the observations to the step, then one
+    # chunk of 5 probes; then 1 eval episode
+    obs, chunks = 2 * (1 + 2) + (1 + budget), 2 * 2
+    launches["supervised"] = read_counts("supervised", {**none, NN_EXACT.name: 2 * (obs + chunks)}, held)
+    again = SupervisedEngine(cfg, root, env=env)
+    check(all(torch.equal(x, y) for n1, n2 in zip(again.nets, engine.nets)
+              for x, y in zip(n1.state_dict().values(), n2.state_dict().values())),
+          "supervised: the checkpoint does not restore the nets")
+    print(f"  [supervised] eval {result.pct_cd_remaining:.3f}% of the first score left; "
+          f"checkpoint of {len(again.nets)} nets restored")
+    return launches, episode
+
+
+def ddqn_episode(engine: DDQNEngine, env: ActiveTouchEnv, batch: dict):
+    """One DDQN training episode, as ``train_epoch`` runs it, without the
+    epoch's checkpoint."""
+    def run():
+        obs = env.reset(batch)
+        for _ in range(engine.config.budget):
+            actions = engine.get_action(obs)
+            nxt, reward, _ = env.step(actions)
+            engine.replay.push(actions, obs, nxt, reward)
+            engine.update_parameters()
+            obs = nxt
+    return run
+
+
+def write_training_world(root: Path, dev: torch.device) -> None:
+    """A dataset for the trainers, in the JAX package's layout: 32 objects
+    in "recon_train" and 8 in "valid" (two training batches of the vision
+    trainer's 16; its validation draws each object 5 times), each with 2
+    grasps of 4 touching fingers (a 121x121 gel image, a local cloud of
+    2000 to 6000 points, the sensor's frame): 4 training batches of the
+    touch trainer's 64 and one validation batch."""
+    names = [f"train_{i:03d}" for i in range(32)] + [f"valid_{i:03d}" for i in range(8)]
+    clouds = write_objects(root, names, VisionConfig(), dev, seed=2)
+    rng = np.random.default_rng(5)
+    grasps = Path(object_dirs(str(root))["grasp_info"])
+    for name, cloud in zip(names, clouds):
+        for grasp in rng.choice(50, size=2, replace=False):
+            gdir = grasps / name / str(grasp)
+            gdir.mkdir(parents=True)
+            for finger in range(4):
+                pos = cloud[rng.integers(len(cloud))]
+                np.save(gdir / f"{finger}_touch.npy",
+                        rng.integers(0, 256, size=(121, 121, 3)).astype(np.uint8))
+                np.save(gdir / f"{finger}_points.npy",
+                        (rng.normal(size=(rng.integers(2000, 6000), 3)) * 0.003).astype(np.float32))
+                np.save(gdir / f"{finger}_ref_frame.npy",
+                        {"pos": pos, "rot": np.linalg.qr(rng.normal(size=(3, 3)))[0]})
+    np.save(root / "data_split.npy", {"recon_train": names[:32], "valid": names[32:]})
+
+
+def phase_trainers_from_disk(dev: torch.device) -> dict:
+    """One ``fit`` epoch of ``VisionEngine(VisionConfig())`` (the clustered
+    loss) and of ``TouchEngine(TouchConfig())`` from loaders over the
+    datasets of the files written by write_training_world, as the JAX
+    package's command line feeds them.  Returns the launches by path."""
+    root = Path(EXPERIMENTS) / "training_world"
+    t0 = time.perf_counter()
+    write_training_world(root, dev)
+    print(f"  training dataset written in {(time.perf_counter() - t0) * 1e3:.0f} ms")
+    none = {k.name: 0 for k in KERNELS}
+    launches = {}
+
+    cfg = VisionConfig(epochs=1, exp_id="vision_from_disk", experiments_root=EXPERIMENTS)
+
+    def vision(split: str, shuffle: bool):
+        ds = VisionDataset(str(root), split, use_img=cfg.use_img, use_touch=cfg.use_touch,
+                           finger=cfg.finger, num_grasps=cfg.num_grasps,
+                           number_points=cfg.number_points, eval_mode=cfg.eval, seed=cfg.seed)
+        return lambda: Loader(ds, batch_size=cfg.batch_size, shuffle=shuffle)
+
+    engine = VisionEngine(cfg)
+    train, valid = vision("recon_train", True), vision("valid", False)
+    steps = (len(train()), len(valid()))
+    # per train step 2 chunk tables, 2 pruned scans and 2 segment sums (the
+    # Chamfer loss's fused stream, the sampler's); per eval step the first two
+    per_step = {NN_CLUSTER.name: 2, SELECT_CHUNKS.name: 2}
+    launches["vision from disk"] = fit_epoch(engine, train, valid, "vision from disk", {
+        **none, **{k: v * sum(steps) for k, v in per_step.items()}, SEGSUM.name: 2 * steps[0]}, steps)
+
+    cfg = TouchConfig(epochs=1, exp_id="touch_from_disk", experiments_root=EXPERIMENTS)
+
+    def touch(split: str, shuffle: bool):
+        ds = TouchDataset(str(root), split, num_samples=cfg.num_samples)
+        return lambda: Loader(ds, batch_size=cfg.batch_size, shuffle=shuffle)
+
+    engine = TouchEngine(cfg)
+    train, valid = touch("recon_train", True), touch("valid", False)
+    steps = (len(train()), len(valid()))
+    launches["touch from disk"] = fit_epoch(engine, train, valid, "touch from disk", {
+        **none, NN_EXACT.name: 2 * sum(steps), SEGSUM.name: 2 * steps[0]}, steps)
+    return launches
+
+
+def fit_epoch(engine, train, valid, label: str, expected: dict, steps: tuple) -> dict:
+    check(steps[0] >= 2 and steps[1] >= 1, f"{label}: the dataset gives {steps} batches")
+    held = torch.cuda.memory_allocated()
+    count_from_zero()
+    t0 = time.perf_counter()
+    best = engine.fit(train, valid)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  [{label}] one fit epoch of {steps[0]} train and {steps[1]} valid batches: "
+          f"{epoch_ms:.3f} ms, valid loss {best}")
+    launches = read_counts(label, expected, held)
+    check(np.isfinite(best), f"{label}: non-finite validation loss")
+    check(engine.ckpt.exists("best") and engine.ckpt.exists("recent"),
+          f"{label}: no best or recent checkpoint")
+    return launches
 
 
 def loss_and_grads(engine, batch: dict, seed: int):
@@ -1266,16 +1628,21 @@ def main() -> int:
     timing[SEGSUM.name].update(seg_shapes, max_abs_err=max(
         timing[SEGSUM.name]["max_abs_err"], seg_shapes["autoencoder_stream"]["max_abs_err"]))
     print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch, "
-          "autoencoder, active environment")
+          "autoencoder, active environment, learned policies, trainers from disk")
+    shutil.rmtree(EXPERIMENTS, ignore_errors=True)  # no engine resumes an earlier run
     paths, launches = phase_main_paths(dev)
-    launches["env"], greedy_selection = phase_env(dev)
+    launches["env"], env = phase_env(dev)
+    policy_launches, ddqn_episode_run = phase_policies(dev, env)
+    launches.update(policy_launches)
+    launches.update(phase_trainers_from_disk(dev))
     print("== 5 outputs")
     phase_outputs(paths)
     print("== 6 profile")
     for label, (engine, batch) in paths.items():
         gen = engine.step_generator(200)
         phase_profile(lambda: engine.train_step(batch, gen), f"{label} train step")
-    phase_profile(greedy_selection, "env greedy selection (every grasp scored)")
+    phase_profile(env.best_action, "env greedy selection (every grasp scored)")
+    phase_profile(ddqn_episode_run, "DDQN episode (latent; 5 env steps, 5 updates)")
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     sources = {

@@ -271,7 +271,7 @@ def test_env_signals_from_a_simulator_match_jax(world, tmp_path):
     bare = ActiveTouchEnv(PolicyConfig(**cfg), chart_cache_root=world, device="cpu")
     bare.reset(_batch(world, NAMES[:2]))
     bare.current["batch"]["names"][1] = "elsewhere/unknown_object"
-    with pytest.raises(RuntimeError, match="item 12"):
+    with pytest.raises(RuntimeError, match=r"§1 item 1\)"):
         bare.step(np.array([0, 1]))
 
 
@@ -401,7 +401,7 @@ def test_policy_engine_without_an_env_reads_the_chart_cache(world, tmp_path, mon
     assert isinstance(engine, PolicyEngine)
     assert cfg.num_gcn_layers == SMALL["num_gcn_layers"]
     assert engine.env.auto_model.encoding_size == AE["encoding_size"]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match=r"§1 item 3\)"):
         engine.evaluate(split="test")
     with open(os.path.join(cfg.results_dir, "eval.json")) as f:
         assert np.isfinite(json.load(f)["pct_cd_remaining"])
