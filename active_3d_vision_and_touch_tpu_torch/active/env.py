@@ -9,10 +9,11 @@ element by folding them onto the batch: one reconstruction and one exact
 Chamfer distance per chunk of candidates.
 
 Touch signals come from a per-(object, action) cache, filled from the
-dataset's precomputed chart cache (``chart_cache_root``) or from a
-caller-supplied simulator (``sampler``: any object with ``load_objects``,
-``sample`` and ``disconnect``).  The port has no simulator of its own yet,
-so a signal found in neither raises.
+dataset's precomputed chart cache (``chart_cache_root``) or from the host
+simulator: the env's own :class:`sim.sampler.Sampler` unless the caller
+passes a ``sampler`` (any object with ``load_objects``, ``sample`` and
+``disconnect``).  ``reset`` loads the episode's objects into it; a pair the
+chart cache lacks is grasped live at its first use.
 
 Vertex mask codes: 0 failed grasp, 1 grasp without touch (chart collapsed
 to the sensor's position), 2 successful touch, 3 vision chart.
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from active_3d_vision_and_touch_tpu_torch.core import touch_chart
-from active_3d_vision_and_touch_tpu_torch.core.config import PolicyConfig
+from active_3d_vision_and_touch_tpu_torch.core.config import PolicyConfig, SimConfig
 from active_3d_vision_and_touch_tpu_torch.models.autoencoder import MeshAutoEncoder
 from active_3d_vision_and_touch_tpu_torch.models.touch import TouchChartEncoder
 from active_3d_vision_and_touch_tpu_torch.models.vision import (
@@ -35,7 +36,8 @@ from active_3d_vision_and_touch_tpu_torch.models.vision import (
     prepare_charts,
 )
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
-from active_3d_vision_and_touch_tpu_torch.train.base import resolve_device
+from active_3d_vision_and_touch_tpu_torch.sim.sampler import Sampler
+from active_3d_vision_and_touch_tpu_torch.train.base import host_to_device, resolve_device
 from active_3d_vision_and_touch_tpu_torch.train.vision import (
     build_deformation,
     deformation_geometry,
@@ -83,7 +85,9 @@ class ActiveTouchEnv:
         self.faces = self.adj_info.faces
         self.chart_verts = torch.as_tensor(touch_chart().verts, device=self.device)
 
-        self.sampler = sampler
+        self.sampler = sampler or Sampler(
+            bs=config.env_batch_size, vision=False, config=SimConfig()
+        )
         self._greedy_rng = np.random.default_rng(config.seed + 12345)
         self.num_fingers = config.num_fingers
         b, f, g = config.env_batch_size, self.num_fingers, config.num_grasps
@@ -103,15 +107,10 @@ class ActiveTouchEnv:
 
     # ------------------------------------------------------------ device
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A float32 copy of ``arr`` on the env's device.  To the card it
-        is copied once into pinned memory and sent from there without
-        waiting, so building the next chunk's charts on the host overlaps
-        the card's work."""
-        if self.device.type != "cuda":
-            return torch.tensor(arr, dtype=torch.float32)
-        staged = torch.empty(np.shape(arr), dtype=torch.float32, pin_memory=True)
-        staged.numpy()[...] = arr
-        return staged.to(self.device, non_blocking=True)
+        """A float32 copy of ``arr`` on the env's device, sent without
+        waiting: building the next chunk's charts on the host overlaps the
+        card's work."""
+        return host_to_device(arr, self.device)
 
     @torch.inference_mode()
     def _predict_touch(self, touch, pos, rot) -> torch.Tensor:
@@ -181,8 +180,7 @@ class ActiveTouchEnv:
             "gt_device": self._to_device(batch["gt_points"]),
             "img_device": self._to_device(batch["img"]) if c.use_img else None,
         }
-        if self.sampler is not None:
-            self.sampler.load_objects(batch["names"], from_dataset=True)
+        self.sampler.load_objects(batch["names"], from_dataset=True)
         if self._chart_cache_root is not None:
             self._prime_signal_cache(batch["names"])
         obs = self.compute_obs()
@@ -287,6 +285,15 @@ class ActiveTouchEnv:
         obs, reward, done = self.step(best)
         return best, obs, reward, done
 
+    def reset_sampler(self) -> None:
+        """Tear down and rebuild the host simulator's scenes and thread pool
+        (the reference's pybullet memory-leak workaround,
+        ``environment.py:367-373``); the next ``reset`` reloads objects."""
+        self.sampler.disconnect()
+        self.sampler = Sampler(
+            bs=self.config.env_batch_size, vision=False, config=SimConfig()
+        )
+
     # ------------------------------------------------------------- signals
     def _apply_signals(self, actions) -> None:
         """Write the charts for ``actions`` into the current step's slot
@@ -345,14 +352,6 @@ class ActiveTouchEnv:
 
     def _simulate_and_cache(self, actions, keys) -> None:
         """Simulate the grasps ``actions`` and cache their signals."""
-        if self.sampler is None:
-            missing = [k for k in keys if k not in self._sig_cache]
-            raise RuntimeError(
-                f"ActiveTouchEnv: no touch signal for {missing[:3]} (of {len(missing)}): "
-                "neither in the chart cache nor from a simulator.  The port has no "
-                "simulator of its own until sim/ is ported (ROADMAP.md §1 item 1): pass "
-                "chart_cache_root holding these objects' touch_charts.npy, or a sampler"
-            )
         b = self.config.env_batch_size
         signals = self.sampler.sample(actions, touch=True)
         fingers = [1] if self.config.finger else list(range(4))

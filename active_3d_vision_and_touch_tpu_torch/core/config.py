@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 def setting_name(use_img: bool, finger: bool) -> str:
@@ -175,3 +175,16 @@ class PolicyConfig(VisionConfig):
     training_actions: int = 5
     supervised_select: str = "argmin"
     supervised_epochs: int = 1
+
+
+@dataclass
+class SimConfig:
+    """Host simulator parameters."""
+
+    max_depth: float = 0.025
+    touch_resolution: int = 121
+    vision_resolution: int = 256
+    object_colour: tuple = (228, 217, 111, 255)
+    num_fingers: int = 4
+    tacto: bool = False
+    workers: int = field(default_factory=lambda: min(8, os.cpu_count() or 1))

@@ -32,6 +32,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def host_to_device(arr, device: torch.device) -> torch.Tensor:
+    """A float32 copy of the numpy ``arr`` on ``device``.  To the card it is
+    copied once into pinned memory and sent from there without waiting, so
+    the host's next work overlaps the card's."""
+    if device.type != "cuda":
+        return torch.tensor(arr, dtype=torch.float32)
+    staged = torch.empty(np.shape(arr), dtype=torch.float32, pin_memory=True)
+    staged.numpy()[...] = arr
+    return staged.to(device, non_blocking=True)
+
+
 class ReconEngine:
     """Subclasses set ``self.model`` and ``self.optimizer`` before calling
     ``super().__init__`` and define ``_loss`` plus ``loss_tag``."""

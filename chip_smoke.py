@@ -50,7 +50,16 @@ package, and runs these phases in order; any failure exits non-zero:
    supervised policy (its nets of steps 0 and 1 at 5 probes, one
    evaluation batch).  One ``fit`` epoch each of ``VisionEngine`` and
    ``TouchEngine`` at their default configurations from loaders over the
-   JAX package's on-disk dataset layout, written from the seed;
+   JAX package's on-disk dataset layout, written from the seed.  The
+   port's ``generate_dataset`` of 8 procedural objects (50 grasps, 30k
+   points) and ``make_touch_charts`` over ``TouchEngine(TouchConfig())``
+   (no hand-written kernel launched), the layout and the charts' mask codes
+   checked against the files, and K3 against K1 on the generated clouds;
+   the environment on that world with its default simulator and no chart
+   cache, a greedy episode whose first step grasps every pair live,
+   launching K1 as the same episode on the chart cache does, with live and
+   cached signals compared; the simulator's own times, and its native
+   rasterizer against the numpy one;
 5. the outputs: the full-width losses with the kernels against the same
    step on the plain versions (the sampler's backward included) for the
    exact vision step and the autoencoder step, the sampler's backward alone
@@ -69,9 +78,11 @@ package, and runs these phases in order; any failure exits non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -91,6 +102,7 @@ from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, touch_char
 from active_3d_vision_and_touch_tpu_torch.core.config import (
     AutoencoderConfig,
     PolicyConfig,
+    SimConfig,
     TouchConfig,
     VisionConfig,
 )
@@ -99,8 +111,11 @@ from active_3d_vision_and_touch_tpu_torch.data import (
     Loader,
     TouchDataset,
     VisionDataset,
+    generation,
     object_dirs,
+    random_object,
 )
+from active_3d_vision_and_touch_tpu_torch.data.generation import SPLIT_NAMES
 from active_3d_vision_and_touch_tpu_torch.models import gcn as gcn_module
 from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
 from active_3d_vision_and_touch_tpu_torch.ops import (
@@ -114,7 +129,8 @@ from active_3d_vision_and_touch_tpu_torch.ops import chamfer as chamfer_module
 from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
 from active_3d_vision_and_touch_tpu_torch.ops import sample as sampler
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all, nvcc_path
-from active_3d_vision_and_touch_tpu_torch.ops.chamfer import min_dists, min_dists_plain
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer import chamfer_distance, min_dists, min_dists_plain
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import chamfer_clustered_tiled_gt
 from active_3d_vision_and_touch_tpu_torch.ops.sample import (
     batch_sample,
     draw_sample_noise,
@@ -125,6 +141,7 @@ from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
     segment_accumulate_sorted,
     segment_sum_plain,
 )
+from active_3d_vision_and_touch_tpu_torch.sim import Sampler, Scene, raster
 from active_3d_vision_and_touch_tpu_torch.testing import (
     INTERPOLATE_CASES,
     NN_CLUSTER_CASES,
@@ -186,6 +203,14 @@ K3_TARGET_MS = 1.50
 SELECT_TARGET_MS = 2.0
 SM_LANES = 132 * 128  # an H100 SXM: 132 SMs, each issuing for 4 x 32 lanes a clock
 EXPERIMENTS = str(ROOT / "build" / "chip_smoke")
+# the generated world: 8 procedural objects of 50 grasps; the default split
+# of those 8 names puts 3 of them, an env batch, in "auto_train"
+GENERATED_OBJECTS, GEN_ACTIONS, LIVE_SPLIT = 8, 50, "auto_train"
+GEN_DIM, GEN_POINTS = 128, 30000  # the voxel grid and the cloud of generate_dataset's defaults
+# live against cached code-2 charts: the cache's images were truncated to
+# uint8, the live ones are not.  An H100 showed 2.87e-7 at most (the touch
+# model at seed 0 on the generated world)
+LIVE_CHART_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1024,11 +1049,18 @@ def write_objects(root: Path, names: list, cfg: VisionConfig, dev: torch.device,
 def write_active_world(root: Path, cfg: PolicyConfig, dev: torch.device) -> None:
     """The dataset root the policies read: ``env_batch_size`` objects in the
     splits "test" and "valid", and as many more in "RL_train" beside them,
-    so that a training epoch is two env batches."""
+    so that a training epoch is two env batches; each object's mesh is a
+    procedural one."""
     b = cfg.env_batch_size
     names = [f"object_{i:03d}" for i in range(2 * b)]
     write_objects(root, names[:b], cfg, dev, seed=0)
     write_objects(root, names[b:], cfg, dev, seed=1)
+    # each object's mesh, which the env's simulator loads at reset; the
+    # chart cache answers every signal, so no grasp is simulated
+    for i, name in enumerate(names):
+        mesh = random_object(i)
+        np.save(Path(object_dirs(str(root))["object_info"]) / f"{name}_verts.npy", mesh.verts)
+        np.save(Path(object_dirs(str(root))["object_info"]) / f"{name}_faces.npy", mesh.faces)
     np.save(root / "data_split.npy", {"test": names[:b], "valid": names[:b], "RL_train": names})
 
 
@@ -1092,26 +1124,31 @@ def phase_env(dev: torch.device) -> tuple[dict, ActiveTouchEnv]:
     finite = [greedy, even_result.scores, nearest_result.scores]
     check(all(np.isfinite(a).all() for a in finite), "non-finite score on the env path")
 
-    # one chunk of candidate scores with the same draws through K1 and
-    # through the plain version: the same scores (K1 is bit-exact)
+    check_chunk_against_plain(env, batch, dev, "env")
+    env.reset(batch)
+    return launches, env
+
+
+def check_chunk_against_plain(env: ActiveTouchEnv, batch: dict, dev: torch.device, label: str) -> None:
+    """One chunk of candidate scores with the same draws through K1 and
+    through the plain version: the same scores (K1 is bit-exact)."""
+    cfg, b = env.config, env.config.env_batch_size
     env.reset(batch)
     cands = np.tile(np.arange(ENV_CHUNK), (b, 1))
     draws = draw_sample_noise(b * ENV_CHUNK, REPEAT * cfg.number_points,
                               torch.Generator(device=dev).manual_seed(6), dev)
     before = NN_EXACT.launches
     on_kernels = env.score_candidates(cands, draws=[draws])
-    check(NN_EXACT.launches == before + 2, "a chunk of candidate scores is not 2 NN launches")
+    check(NN_EXACT.launches == before + 2, f"{label}: a chunk of candidate scores is not 2 NN launches")
     chamfer_module.min_dists = min_dists_plain
     try:
         on_plain = env.score_candidates(cands, draws=[draws])
     finally:
         chamfer_module.min_dists = min_dists
     rel = float(np.max(np.abs(on_kernels - on_plain) / np.abs(on_plain)))
-    print(f"  [env] one chunk of {b} x {ENV_CHUNK} candidate scores: kernels against the plain "
+    print(f"  [{label}] one chunk of {b} x {ENV_CHUNK} candidate scores: kernels against the plain "
           f"versions, largest relative difference {rel:.3e}")
-    check(np.isfinite(on_kernels).all() and rel <= 1e-6, "env candidate scores: kernels != plain")
-    env.reset(batch)
-    return launches, env
+    check(np.isfinite(on_kernels).all() and rel <= 1e-6, f"{label} candidate scores: kernels != plain")
 
 
 class Timed:
@@ -1124,6 +1161,7 @@ class Timed:
 
     def __enter__(self):
         fn = getattr(self.obj, self.name)
+        self.own = vars(self.obj).get(self.name)  # a module's function, an instance's attribute
 
         def timed(*args, **kw):
             t0 = time.perf_counter()
@@ -1135,7 +1173,10 @@ class Timed:
         return self
 
     def __exit__(self, *exc):
-        delattr(self.obj, self.name)
+        if self.own is None:
+            delattr(self.obj, self.name)
+        else:
+            setattr(self.obj, self.name, self.own)
 
     def median(self) -> float:
         return float(np.median(self.ms)) if self.ms else float("nan")
@@ -1416,6 +1457,360 @@ def fit_epoch(engine, train, valid, label: str, expected: dict, steps: tuple) ->
     return launches
 
 
+class DeviceTimed:
+    """Replaces ``obj.name`` with a wrapper that records a pair of CUDA
+    events on the current stream around each call.  ``busy_ms`` sums the
+    intervals from event ``start``: the card's time from the first launch of
+    a call to the end of its last, in which any wait of the card for the
+    host inside the call counts as busy, so it bounds the busy time from
+    above.  The original comes back on exit."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.events = obj, name, []
+
+    def __enter__(self):
+        fn = getattr(self.obj, self.name)
+
+        def timed(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.name)
+
+    def busy_ms(self, start: int = 0, stop: int | None = None) -> float:
+        torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.events[start:stop]))
+
+
+def check_generated_layout(root: Path, names: list, num_actions: int, num_points: int) -> dict:
+    """Every file of the dataset layout for each generated object, and its
+    chart cache: shape (actions, 4, 25, 4), finite, one mask code in {0, 1,
+    2} a slot, and that code the one the slot's files give: 2 where
+    ``<finger>_touch.npy`` exists (with its ``_points.npy`` and
+    ``_ref_frame.npy``), 1 where only ``_ref_frame.npy`` exists, else 0.
+    Returns the count of slots by code."""
+    dirs = {k: Path(v) for k, v in object_dirs(str(root)).items()}
+    split = np.load(root / "data_split.npy", allow_pickle=True).item()
+    check(set(split) == set(SPLIT_NAMES) and sorted(sum(split.values(), [])) == names,
+          f"generated data_split.npy: {split}")
+    by_code = {0: 0, 1: 0, 2: 0}
+    for n in names:
+        for suffix in ("_verts.npy", "_faces.npy", ".obj"):
+            check((dirs["object_info"] / f"{n}{suffix}").exists(), f"generated: no {n}{suffix}")
+        cloud = np.load(dirs["point_cloud_info"] / f"{n}.npy")
+        check(cloud.shape == (num_points, 3) and cloud.dtype == np.float32 and np.isfinite(cloud).all(),
+              f"generated: point cloud of {n} is {cloud.shape} {cloud.dtype}")
+        img = np.load(dirs["images_colourful"] / f"{n}.npy")
+        check(img.shape == (256, 256, 3) and img.dtype == np.uint8 and img.min() < 255,
+              f"generated: image of {n} is {img.shape} {img.dtype} or blank")
+        charts = np.load(dirs["touch_charts"] / n / "touch_charts.npy")
+        check(charts.shape == (num_actions, 4, 25, 4) and charts.dtype == np.float32
+              and np.isfinite(charts).all(), f"generated: chart cache of {n} is {charts.shape}")
+        codes = charts[..., 3]
+        check(set(np.unique(codes)) <= {0.0, 1.0, 2.0} and (codes == codes[..., :1]).all(),
+              f"generated: mask codes of {n}: {np.unique(codes)}")
+        for a in range(num_actions):
+            gdir = dirs["grasp_info"] / n / str(a)
+            check(gdir.is_dir(), f"generated: no {gdir}")
+            for f in range(4):
+                touch = (gdir / f"{f}_touch.npy").exists()
+                ref = (gdir / f"{f}_ref_frame.npy").exists()
+                points = (gdir / f"{f}_points.npy").exists()
+                want = 2 if touch else 1 if ref else 0
+                check(codes[a, f, 0] == want and points == touch and (ref or not touch),
+                      f"generated: {n} grasp {a} finger {f}: code {codes[a, f, 0]}, files "
+                      f"touch {touch} ref {ref} points {points}")
+                by_code[want] += 1
+                if touch:
+                    image = np.load(gdir / f"{f}_touch.npy")
+                    cloud = np.load(gdir / f"{f}_points.npy")
+                    check(image.shape == (121, 121, 3) and image.dtype == np.uint8
+                          and cloud.ndim == 2 and 0 < len(cloud) <= 4096,
+                          f"generated: {n} grasp {a} finger {f}: {image.shape} {cloud.shape}")
+    return by_code
+
+
+def k3_on_generated(root: Path, names: list, dev: torch.device, synthetic: list) -> list:
+    """K3's nearest neighbours against K1's on the generated objects: each
+    30k-point cloud against a second 30k-point draw of the same surface
+    (``extract_surface_points`` with another generator), through the sort,
+    padding and selection of ``chamfer_clustered_tiled_gt`` as the vision
+    step calls it (the draw in the predictions' place).  Prints the share of
+    queries whose clustered distance is the exact one, both ways, beside the
+    synthetic clouds' of phase 3, and the clustered Chamfer distance against
+    the exact one; a clustered distance below the exact one fails."""
+    dirs = object_dirs(str(root))
+    y = np.stack([np.load(Path(dirs["point_cloud_info"]) / f"{n}.npy") for n in names])
+    x = []
+    for n in names:
+        base = Path(dirs["object_info"]) / n
+        x.append(generation.extract_surface_points(
+            np.load(f"{base}_verts.npy"), np.load(f"{base}_faces.npy"), dim=GEN_DIM,
+            num_points=y.shape[1], rng=np.random.default_rng(1)))
+    x, y = torch.from_numpy(np.stack(x)).to(dev), torch.from_numpy(y).to(dev)
+    ys1, yperm1 = cluster._sort_by_morton(y)
+    (xs, ys, _, _, _, _), dx, dy = cluster._pair_min_dists_sorted(
+        x, ys1, CHUNK, CHUNKS_PER_TILE, y_sorted=(ys1, yperm1), y_distinct=y.shape[0])
+    ex, _ = min_dists(xs, ys)
+    ey, _ = min_dists(ys, xs)
+    check(bool((dx >= ex).all() and (dy >= ey).all()),
+          "clustered distance below the exact one on the generated clouds")
+    agree = [float((dx == ex).float().mean()), float((dy == ey).float().mean())]
+    with torch.no_grad():
+        clustered = chamfer_clustered_tiled_gt(x, y, 1)
+        exact = chamfer_distance(x, y)
+    print(f"  K3 against K1 on {len(names)} generated objects ({y.shape[1]} points against a second "
+          f"draw of the same surface): neighbour agreement {agree[0]:.6f} (draw -> cloud), "
+          f"{agree[1]:.6f} (cloud -> draw); on the synthetic clouds of phase 3 "
+          f"{synthetic[0]:.6f} / {synthetic[1]:.6f}; Chamfer distance per object, clustered "
+          f"{clustered.tolist()}, exact {exact.tolist()}")
+    return agree
+
+
+def phase_generation(dev: torch.device, synthetic_agreement: list) -> tuple:
+    """The port's ``generate_dataset`` of 8 procedural objects (version 3,
+    50 actions, 128^3 voxels, 30k points) with each stage's wall time, then
+    ``make_touch_charts`` over ``TouchEngine(TouchConfig())`` on the card,
+    with the launch counters from 0 (no hand-written kernel runs there), and
+    again under the profiler for the card's busy time; the layout and the
+    charts' codes checked against the files; K3 against K1 on the clouds.
+    Returns the launches, the touch engine, the root, the names and K3's
+    agreement both ways."""
+    root = Path(EXPERIMENTS) / "generated_world"
+    stages = ("save_object_info", "save_point_info", "save_simulation", "make_data_split")
+    with contextlib.ExitStack() as stack:
+        timers = [stack.enter_context(Timed(generation, name)) for name in stages]
+        t0 = time.perf_counter()
+        generation.generate_dataset(str(root), GENERATED_OBJECTS, seed=0, num_actions=GEN_ACTIONS,
+                                    point_dim=GEN_DIM, num_points=GEN_POINTS, version=3)
+        total_ms = (time.perf_counter() - t0) * 1e3
+    names = [f"{i:06d}" for i in range(GENERATED_OBJECTS)]
+    print(f"  [generation] generate_dataset of {GENERATED_OBJECTS} objects, {GEN_ACTIONS} actions: "
+          f"{total_ms:.1f} ms; by stage, ms: "
+          + ", ".join(f"{name} {t.ms[0]:.1f}" for name, t in zip(stages, timers))
+          + f"; os.cpu_count() {os.cpu_count()}, SimConfig().workers {SimConfig().workers}")
+
+    engine = TouchEngine(TouchConfig(experiments_root=EXPERIMENTS), log=False)
+    held = torch.cuda.memory_allocated()
+    count_from_zero()
+    t0 = time.perf_counter()
+    generation.make_touch_charts(str(root), engine, num_actions=GEN_ACTIONS)
+    torch.cuda.synchronize()
+    charts_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts("touch charts", {k.name: 0 for k in KERNELS}, held)
+    first = {n: np.load(Path(object_dirs(str(root))["touch_charts"]) / n / "touch_charts.npy")
+             for n in names}
+    by_code = check_generated_layout(root, names, GEN_ACTIONS, GEN_POINTS)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    shutil.rmtree(object_dirs(str(root))["touch_charts"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generation.make_touch_charts(str(root), engine, num_actions=GEN_ACTIONS)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    again = max(float(np.abs(np.load(Path(object_dirs(str(root))["touch_charts"]) / n
+                                      / "touch_charts.npy") - first[n]).max()) for n in names)
+    print(f"  [touch charts] make_touch_charts over {GENERATED_OBJECTS} objects ({by_code[2]} touching "
+          f"slots through the touch model, {by_code[1]} grasps without touch, {by_code[0]} failed): "
+          f"{charts_ms:.3f} ms; under the profiler {profiled_ms:.3f} ms with the card busy "
+          f"{busy_ms:.3f} ms (idle share {1 - busy_ms / profiled_ms:.3f}); the second pass differs "
+          f"from the first by at most {again:.3e}")
+    agree = k3_on_generated(root, names, dev, synthetic_agreement)
+    return launches, engine, root, names, agree
+
+
+def phase_env_live(dev: torch.device, root: Path, touch_engine: TouchEngine) -> dict:
+    """The env at the default policy configuration with the latent
+    observation on the generated world, with its default simulator and no
+    chart cache: a greedy episode through ``best_step``, whose first step
+    grasps every (object, action) pair live.  The host's time inside
+    ``sampler.sample``, the touch model's device time, and the card's busy
+    time by CUDA events around the env's device calls (an upper bound), each
+    step; K1's launches equal to the same episode on an env that reads the
+    chart cache of phase_generation; one chunk through K1 against the plain
+    versions; the live signals against the cached ones for every (object,
+    action): equal codes, equal positions of code-1 slots, code-2 charts
+    within LIVE_CHART_TOL.  Returns the launches."""
+    cfg = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
+    b, budget = cfg.env_batch_size, cfg.budget
+    dataset = ActiveDataset(str(root), LIVE_SPLIT, number_points=cfg.number_points, env_batch_size=b)
+    check(len(dataset) == b, f"the generated split {LIVE_SPLIT} holds {len(dataset)} objects, not {b}")
+    batch = list(Loader(dataset, b, shuffle=False))[0]
+    auto = build_autoencoder(AutoencoderConfig())
+    env = ActiveTouchEnv(cfg, touch_model=copy.deepcopy(touch_engine.model), auto_model=auto)
+    check(isinstance(env.sampler, Sampler), "the env did not build its own simulator")
+    chunks = -(-cfg.num_actions // ENV_CHUNK)
+    expected = {k.name: 0 for k in KERNELS}
+    expected[NN_EXACT.name] = 2 * ((1 + budget) + budget * chunks)
+
+    held = torch.cuda.memory_allocated()
+    count_from_zero()
+    with Timed(env.sampler, "load_objects") as loads, Timed(env.sampler, "sample") as samples, \
+            Timed(env, "_simulate_and_cache") as simulate, \
+            DeviceTimed(env, "_predict_touch") as touch_t, DeviceTimed(env, "_score_chunk") as score_t, \
+            DeviceTimed(env, "_reconstruct") as obs_t:
+        t0 = time.perf_counter()
+        obs = env.reset(batch)
+        reset_ms = (time.perf_counter() - t0) * 1e3
+        scores, marks, step_ms = [obs["score"]], [], []
+        for _ in range(budget):
+            marks.append((len(samples.ms), len(simulate.ms), len(touch_t.events),
+                          len(score_t.events), len(obs_t.events)))
+            t0 = time.perf_counter()
+            _, obs, _, done = env.best_step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            scores.append(obs["score"])
+        marks.append((len(samples.ms), len(simulate.ms), len(touch_t.events),
+                      len(score_t.events), len(obs_t.events)))
+    check(done, "the live greedy episode did not end at the budget")
+    launches = read_counts("env live", expected, held)
+    check(all(np.isfinite(x).all() for x in scores), "non-finite score on the live env path")
+    keys = [(str(n), a) for n in batch["names"] for a in range(cfg.num_actions)]
+    check(all(k in env._sig_cache for k in keys), "the first greedy step did not grasp every pair")
+    print(f"  [env live] reset {reset_ms:.3f} ms, of which load_objects {sum(loads.ms):.3f} ms "
+          f"({b} objects); greedy step ms {[round(t, 3) for t in step_ms]}")
+    for i, ms in enumerate(step_ms):
+        s0, m0, p0, c0, o0 = marks[i]
+        s1, m1, p1, c1, o1 = marks[i + 1]
+        sample_ms = sum(samples.ms[s0:s1])
+        touch_ms = touch_t.busy_ms(p0, p1)
+        busy = touch_ms + score_t.busy_ms(c0, c1) + obs_t.busy_ms(o0, o1)
+        print(f"  [env live] step {i}: {ms:.3f} ms; {s1 - s0} sampler.sample calls {sample_ms:.3f} ms on "
+              f"the host ({100 * sample_ms / ms:.1f}%), _simulate_and_cache {sum(simulate.ms[m0:m1]):.3f} "
+              f"ms; touch model on the card {touch_ms:.3f} ms; card busy (events) {busy:.3f} ms, idle "
+              f"share at least {1 - busy / ms:.3f}")
+    check_chunk_against_plain(env, batch, dev, "env live")
+
+    cached = ActiveTouchEnv(cfg, touch_model=copy.deepcopy(touch_engine.model), auto_model=auto,
+                            chart_cache_root=str(root))
+    count_from_zero()
+    t0 = time.perf_counter()
+    cached.reset(batch)
+    cached_steps = []
+    for _ in range(budget):
+        t1 = time.perf_counter()
+        cached.best_step()
+        cached_steps.append((time.perf_counter() - t1) * 1e3)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    cached_launches = {k.name: k.launches for k in KERNELS}
+    print(f"  [env cached] the same episode on the chart cache: {cached_ms:.3f} ms, greedy step ms "
+          f"{[round(t, 3) for t in cached_steps]}; launches {cached_launches}")
+    check(cached_launches == launches, "the live episode launches K1 otherwise than the cached one")
+
+    worst, n_touch, n_free = 0.0, 0, 0
+    for key in keys:
+        c_live, codes_live, pos_live = env._sig_cache[key]
+        c_cache, codes_cache, pos_cache = cached._sig_cache[key]
+        check(np.array_equal(codes_live, codes_cache), f"live and cached codes differ at {key}")
+        free, touch = codes_live == 1, codes_live == 2
+        check(np.array_equal(pos_live[free], pos_cache[free]),
+              f"live and cached sensor positions differ at {key}")
+        if touch.any():
+            worst = max(worst, float(np.abs(c_live[touch] - c_cache[touch]).max()))
+        n_touch, n_free = n_touch + int(touch.sum()), n_free + int(free.sum())
+    print(f"  [env live] live signals against the chart cache over {len(keys)} (object, action) pairs: "
+          f"codes equal, {n_free} code-1 positions equal, {n_touch} code-2 charts at most {worst:.3e} "
+          f"apart (limit {LIVE_CHART_TOL:.0e}; the cache's images were truncated to uint8)")
+    check(worst <= LIVE_CHART_TOL, f"live and cached charts {worst} apart, above {LIVE_CHART_TOL}")
+    env.sampler.disconnect()
+    cached.sampler.disconnect()
+    return launches
+
+
+def phase_simulator(root: Path, names: list) -> None:
+    """The host simulator's own numbers on the generated objects: load_objects
+    per object, ``Sampler.sample`` at bs 3 and 8, and on one scene the ms per
+    grasp, per touch render (4 fingers) and per scene image; then the native
+    rasterizer against ``use_native=False`` on three 121x121 touch views and
+    one 256x256 scene view, by the JAX package's rule: under 1% of pixels
+    differ in coverage, depths within 1e-4 where both hit."""
+    prefixes = [os.path.join(object_dirs(str(root))["object_info"], n) for n in names]
+    print(f"  [simulator] os.cpu_count() {os.cpu_count()}, SimConfig().workers {SimConfig().workers}")
+    for bs in (3, 8):
+        sampler = Sampler(bs=bs, vision=False)
+        t0 = time.perf_counter()
+        sampler.load_objects(prefixes[:bs])
+        load_ms = (time.perf_counter() - t0) * 1e3
+        ms = []
+        for action in range(0, 50, 5):
+            t0 = time.perf_counter()
+            sampler.sample([action] * bs, touch=True)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        sampler.disconnect()
+        print(f"  [simulator] bs {bs}: load_objects {load_ms / bs:.3f} ms an object; sample (touch) "
+              f"median {float(np.median(ms)):.3f} ms of 10 actions, {float(np.median(ms)) / bs:.3f} ms "
+              f"a grasp")
+    scene = Scene(vision=True)
+    scene.load_obj(np.load(prefixes[0] + "_verts.npy"), np.load(prefixes[0] + "_faces.npy"))
+    grasp_ms, render_ms, ok = [], [], []
+    for action in range(50):
+        t0 = time.perf_counter()
+        success = scene.grasp(action)
+        grasp_ms.append((time.perf_counter() - t0) * 1e3)
+        if success:
+            ok.append(action)
+            t0 = time.perf_counter()
+            scene.render_depth()
+            scene.render_touch()
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+    image_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        scene.scene_render(occluded=True)
+        image_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  [simulator] one scene: {float(np.mean(grasp_ms)):.3f} ms a grasp (50 actions, "
+          f"{len(ok)} placed), {float(np.mean(render_ms)):.3f} ms a touch render of 4 fingers, "
+          f"{float(np.median(image_ms)):.3f} ms a 256x256 scene image with the hand")
+
+    # the views: the three fingertips that see the most of the object on a
+    # placed grasp, and the scene camera on the object and the hand
+    check(scene.grasp(ok[0]), "the first placed grasp no longer places")
+    mesh = scene.obj
+    views = []
+    for f in range(4):
+        pos, rot = scene.hand.fingertip_camera(f)
+        view = (mesh.verts, mesh.faces, pos, rot, scene._touch_focal, 121, 121)
+        views.append(((raster.rasterize_depth(*view)[1] >= 0).sum(), f"finger {f} 121x121", view))
+    views = sorted(views, key=lambda v: -v[0])[:3]
+    hand = scene.hand.link_meshes()
+    cam = scene.renderer.camera
+    offsets = np.cumsum([mesh.num_verts] + [m.num_verts for m in hand])
+    scene_view = (np.concatenate([mesh.verts] + [m.verts for m in hand]),
+                  np.concatenate([mesh.faces] + [m.faces + o for m, o in zip(hand, offsets[:-1])]),
+                  np.asarray(cam.position), cam.rotation, cam.focal, 256, 256)
+    views.append((0, "scene 256x256", scene_view))
+    for _, label, view in views:
+        native_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            d2, i2 = raster.rasterize_depth(*view)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        d1, i1 = raster.rasterize_depth(*view, use_native=False)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        both = (i1 >= 0) & (i2 >= 0)
+        coverage = float(((i1 >= 0) != (i2 >= 0)).mean())
+        depth_err = float(np.abs(d1[both] - d2[both]).max()) if both.any() else float("nan")
+        print(f"  [simulator] raster {label}: native {float(np.median(native_ms)):.3f} ms, numpy "
+              f"{plain_ms:.3f} ms; {int(both.sum())} pixels hit by both, coverage differs on "
+              f"{coverage:.5f} of pixels, depths at most {depth_err:.3e} apart")
+        check(both.sum() > 100 and coverage < 0.01 and depth_err <= 1e-4,
+              f"the native rasterizer disagrees with the numpy one on the {label} view")
+
+
 def loss_and_grads(engine, batch: dict, seed: int):
     engine.model.eval()  # running statistics: the two passes see one model
     engine.model.zero_grad(set_to_none=True)
@@ -1628,13 +2023,19 @@ def main() -> int:
     timing[SEGSUM.name].update(seg_shapes, max_abs_err=max(
         timing[SEGSUM.name]["max_abs_err"], seg_shapes["autoencoder_stream"]["max_abs_err"]))
     print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch, "
-          "autoencoder, active environment, learned policies, trainers from disk")
+          "autoencoder, active environment, learned policies, trainers from disk, dataset "
+          "generation and touch charts, the environment on live grasps, the host simulator")
     shutil.rmtree(EXPERIMENTS, ignore_errors=True)  # no engine resumes an earlier run
     paths, launches = phase_main_paths(dev)
     launches["env"], env = phase_env(dev)
     policy_launches, ddqn_episode_run = phase_policies(dev, env)
     launches.update(policy_launches)
     launches.update(phase_trainers_from_disk(dev))
+    (launches["touch charts"], touch_engine, gen_root, gen_names,
+     timing[NN_CLUSTER.name]["agreement_on_generated"]) = phase_generation(
+        dev, timing[NN_CLUSTER.name]["agreement_with_exact"])
+    launches["env live"] = phase_env_live(dev, gen_root, touch_engine)
+    phase_simulator(gen_root, gen_names)
     print("== 5 outputs")
     phase_outputs(paths)
     print("== 6 profile")

@@ -54,9 +54,10 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
     VisionConfig,
     save_config,
 )
-from active_3d_vision_and_touch_tpu_torch.data import object_dirs
+from active_3d_vision_and_touch_tpu_torch.data import object_dirs, random_object
 from active_3d_vision_and_touch_tpu_torch.models import MeshAutoEncoder, TouchChartEncoder
 from active_3d_vision_and_touch_tpu_torch.ops.sample import draw_sample_noise
+from active_3d_vision_and_touch_tpu_torch.sim import Sampler
 from active_3d_vision_and_touch_tpu_torch.train.vision import build_deformation
 from test_torch_autoencoder import _jax_sample, _sampler_inputs, random_variables
 
@@ -82,15 +83,19 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 def _write_world(root, rng):
-    """Images, gt clouds (on a sphere of radius 0.1), a data split, and a
+    """Images, gt clouds (on a sphere of radius 0.1), a data split, a
     chart cache (actions, 4 fingers, 25, xyz | code) in which each action's
-    four fingers hold the codes 0, 1, 2, 2 in a drawn order; a code-1 slot
+    four fingers hold the codes 0, 1, 2, 2 in a drawn order (a code-1 slot
     is collapsed onto its finger's position, as the touch-chart stage
-    stores it."""
+    stores it), and each object's mesh, a procedural object, which the
+    env's default simulator loads at ``reset``."""
     dirs = object_dirs(root)
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
-    for n in NAMES:
+    for i, n in enumerate(NAMES):
+        mesh = random_object(i)
+        np.save(os.path.join(dirs["object_info"], n + "_verts.npy"), mesh.verts)
+        np.save(os.path.join(dirs["object_info"], n + "_faces.npy"), mesh.faces)
         np.save(os.path.join(dirs["images_colourful"], n + ".npy"),
                 rng.integers(0, 256, size=(64, 64, 3)).astype(np.uint8))
         pts = rng.normal(size=(300, 3))
@@ -250,8 +255,10 @@ class _FakeSimulator:
 def test_env_signals_from_a_simulator_match_jax(world, tmp_path):
     """Signals neither primed nor cached come from the supplied simulator
     through the frozen touch model: the cached charts within 1e-4 of the
-    JAX env's on converted weights, the codes and positions equal; without
-    a simulator the port raises and names the roadmap item."""
+    JAX env's on converted weights, the codes and positions equal.  Without
+    a sampler, each env builds its own simulator: after ``reset`` on two
+    objects, a key outside the chart cache is grasped live, and the port's
+    signals match the JAX env's default simulator's to the same tolerance."""
     cfg = dict(SMALL, use_latent=False, experiments_root=str(tmp_path))
     rng = np.random.default_rng(2)
     tv = random_variables(JaxTouchChartEncoder(), rng, jnp.zeros((1, 121, 121, 3)),
@@ -268,11 +275,24 @@ def test_env_signals_from_a_simulator_match_jax(world, tmp_path):
         np.testing.assert_array_equal(codes_t, codes_j)
         np.testing.assert_array_equal(pos_t, pos_j)
 
-    bare = ActiveTouchEnv(PolicyConfig(**cfg), chart_cache_root=world, device="cpu")
-    bare.reset(_batch(world, NAMES[:2]))
+    bare = ActiveTouchEnv(PolicyConfig(**cfg), touch, chart_cache_root=world, device="cpu")
+    assert isinstance(bare.sampler, Sampler)
+    jbare = JaxActiveTouchEnv(JaxPolicyConfig(**cfg), tv, {})
+    batch = _batch(world, NAMES[:2])
+    bare.reset(batch)
+    jbare.sampler.load_objects(batch["names"], from_dataset=True)
     bare.current["batch"]["names"][1] = "elsewhere/unknown_object"
-    with pytest.raises(RuntimeError, match=r"§1 item 1\)"):
-        bare.step(np.array([0, 1]))
+    bare.step(np.array([0, 1]))
+    keys = [(batch["names"][0], 0), ("elsewhere/unknown_object", 1)]
+    jbare._simulate_and_cache(np.array([0, 1]), keys)
+    for key in keys:
+        (c_j, codes_j, pos_j), (c_t, codes_t, pos_t) = jbare._sig_cache[key], bare._sig_cache[key]
+        np.testing.assert_allclose(c_t, c_j, rtol=1e-4, atol=1e-6)
+        np.testing.assert_array_equal(codes_t, codes_j)
+        np.testing.assert_array_equal(pos_t, pos_j)
+    assert (codes_t == 2).any()
+    for e in (bare, jbare):
+        e.sampler.disconnect()
 
 
 def test_env_defaults_to_cuda(tmp_path):
