@@ -14,8 +14,14 @@ follow the JAX package's:
              and the ``MeshAutoEncoder``
 - ``train``  the vision, touch and autoencoder trainers (``VisionEngine``,
              ``TouchEngine``, ``AutoencoderEngine``), checkpoints, early stop
-- ``data``   the rollout dataset and its prefetching loader (host, numpy)
-- ``active`` the active-touch environment and the non-learned policies
+- ``data``   the trainers' and the rollout datasets, their prefetching
+             loader, procedural objects and dataset generation (host, numpy)
+- ``sim``    the host simulator: hand, grasps, gel and scene renderers
+- ``active`` the active-touch environment and the policies
+- ``parallel`` process groups, device meshes and batch sharding over
+             ``torch.distributed``; the trainers train across its ranks
+- ``utils``  plots and renders written as PNGs, ``torch.profiler`` traces
+- ``cli``, ``bench`` the command line and the headline benchmark
 - ``convert`` flax variables → the port's ``state_dict``s
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

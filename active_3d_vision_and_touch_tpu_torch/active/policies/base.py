@@ -25,6 +25,7 @@ from active_3d_vision_and_touch_tpu_torch.train.autoencoder import build_autoenc
 from active_3d_vision_and_touch_tpu_torch.train.base import resolve_device
 from active_3d_vision_and_touch_tpu_torch.train.common import CheckpointManager
 from active_3d_vision_and_touch_tpu_torch.train.vision import build_deformation
+from active_3d_vision_and_touch_tpu_torch.utils.viz import visualize_actions
 
 # the fields of the frozen vision model's config that define the
 # reconstruction's architecture and setting
@@ -79,10 +80,11 @@ class PolicyEngine:
         device=None,
     ):
         """Without ``env``, the frozen models come from their checkpoints
-        and the env reads its touch signals from ``data_root``'s chart
-        cache (the port has no simulator yet).  ``device`` is where the
-        env is built and where a learned policy keeps its nets: by default
-        the given env's device, else the card."""
+        and the env reads a touch signal from ``data_root``'s chart cache
+        where it holds one, and grasps live through its own simulator
+        (``sim/sampler.py::Sampler``) where it does not.  ``device`` is
+        where the env is built and where a learned policy keeps its nets:
+        by default the given env's device, else the card."""
         self.config = config
         self.data_root = data_root
         if device is None:
@@ -117,9 +119,9 @@ class PolicyEngine:
 
     def save_result(self, result) -> None:
         """Write the result's summary and trajectories under the results
-        directory (``eval.json``, ``eval_trajectories.npz``).
-        ``config.visualize`` raises after that: the plots need
-        ``utils/viz.py``, which the port does not have yet."""
+        directory (``eval.json``, ``eval_trajectories.npz``) and, with
+        ``config.visualize``, the action histogram and sphere-coverage map
+        (``histogram.png``, ``sphere_projection.png``)."""
         path = os.path.join(self.config.results_dir, "eval.json")
         with open(path, "w") as f:
             json.dump(result.summary(), f, indent=2)
@@ -129,7 +131,9 @@ class PolicyEngine:
             actions=result.actions,
         )
         if self.config.visualize:
-            raise NotImplementedError(
-                f"visualize=True: the action plots need utils/viz.py, not ported yet "
-                f"(ROADMAP.md §1 item 3); the results are saved in {self.config.results_dir}"
+            visualize_actions(
+                self.config.results_dir,
+                result.actions,
+                self.config.num_actions,
+                use_img=self.config.use_img,
             )

@@ -305,7 +305,12 @@ class Loader:
     """Minimal prefetching batch loader over a dataset with ``collate``.
 
     One thread assembles batches (items read by a small thread pool) ahead
-    of the consumer.  An error in a worker is raised to the consumer."""
+    of the consumer.  An error in a worker is raised to the consumer.
+
+    ``process_shard=(index, count)`` shards the data over ranks: every rank
+    draws the same seeded global order and keeps ``order[index::count]``,
+    so the ranks' batches are disjoint and together make the global batch
+    (``batch_size`` is the local one)."""
 
     def __init__(
         self,
@@ -316,6 +321,7 @@ class Loader:
         drop_last: bool = True,
         prefetch: int = 2,
         num_threads: int = 4,
+        process_shard: tuple[int, int] | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -324,11 +330,19 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_threads = num_threads
+        self.process_shard = process_shard
         self._epoch = 0
 
+    def _local_len(self) -> int:
+        n = len(self.dataset)
+        if self.process_shard is not None:
+            index, count = self.process_shard
+            n = (n - index + count - 1) // count
+        return n
+
     def __len__(self):
-        n = len(self.dataset) // self.batch_size
-        if not self.drop_last and len(self.dataset) % self.batch_size:
+        n = self._local_len() // self.batch_size
+        if not self.drop_last and self._local_len() % self.batch_size:
             n += 1
         return n
 
@@ -336,6 +350,9 @@ class Loader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        if self.process_shard is not None:
+            index, count = self.process_shard
+            order = order[index::count]
         self._epoch += 1
         batches = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last:

@@ -76,26 +76,66 @@ class BatchNorm(nn.Module):
     value and the *biased* batch variance (``nn.BatchNorm2d`` would use
     momentum 0.01 on the new value and the unbiased variance).  Eval mode
     normalizes with the running statistics.  eps 1e-5 in both.
+
+    With a ``group`` of more than one rank (:func:`sync_batchnorm_`) the
+    batch statistics are those of the global batch, as under the JAX
+    package's ``jit`` over a sharded batch: the ranks' counts, sums and
+    sums of squares are added by a differentiable ``all_reduce`` (the
+    gradient flows back to every rank's rows, as in ``SyncBatchNorm``), and
+    the variance is flax's E[x²] - E[x]², floored at 0.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+
+    def _global_moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        sums = torch.cat([
+            x.sum(dim=(0, 2, 3)),
+            (x * x).sum(dim=(0, 2, 3)),
+            x.new_full((1,), x.numel() // c),
+        ])
+        sums = all_reduce(sums, group=self.group)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c : 2 * c] / sums[2 * c] - mean * mean, min=0.0)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            mean, var = self._global_moments(x)
+            self._update_running(mean.detach(), var.detach())
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def sync_batchnorm_(module: nn.Module, group) -> nn.Module:
+    """Every ``BatchNorm`` of ``module`` normalizes over the global batch of
+    ``group``'s ranks in train mode (``group=None``: its own rows again)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 class ImageEncoder(nn.Module):

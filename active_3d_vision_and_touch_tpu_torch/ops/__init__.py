@@ -1,6 +1,8 @@
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import (  # noqa: F401
     NN_EXACT,
     chamfer_distance,
+    chamfer_distance_sharded,
+    chamfer_shard_terms,
     mesh_chamfer_distance,
     min_dists,
 )

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import (
     CudaKernel,
@@ -26,6 +27,7 @@ from active_3d_vision_and_touch_tpu_torch.ops._cuda import (
 )
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import (
     chamfer_clustered_tiled_gt,
+    min_dists_clustered,
 )
 from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
@@ -131,6 +133,48 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor, plain: bool = False) -> t
     return _ChamferDistance.apply(x, y, plain)
 
 
+def chamfer_shard_terms(
+    x: torch.Tensor, y_shard: torch.Tensor, nn: str = "exact"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's two terms of the point-sharded Chamfer distance, before
+    the reductions across shards: each x against this shard of y, (B, N)
+    least squared distances, and the sum over this shard's queries of their
+    least squared distance to x, (B,).  ``nn="exact"`` searches with
+    :func:`min_dists` (K1 on the card), ``"clustered"`` with
+    :func:`ops.chamfer_cluster.min_dists_clustered` (K3)."""
+    if nn == "exact":
+        nn_fn = min_dists
+    elif nn == "clustered":
+        nn_fn = min_dists_clustered
+    else:
+        raise ValueError(f"nn={nn!r}: expected 'exact' or 'clustered'")
+    dx, _ = nn_fn(x, y_shard)
+    dy, _ = nn_fn(y_shard, x)
+    return dx, dy.sum(dim=1)
+
+
+def chamfer_distance_sharded(
+    x: torch.Tensor, y: torch.Tensor, group=None, nn: str = "exact"
+) -> torch.Tensor:
+    """Chamfer distance with the point axis of ``y`` sharded over the ranks
+    of ``group`` (the JAX package's ``chamfer_distance_sharded`` over a
+    mesh axis).  x (B, N, 3) is whole on every rank, y (B, M / world, 3)
+    is this rank's shard, equal on every rank; returns (B,) on every rank.
+
+    Each rank runs :func:`chamfer_shard_terms`; direction 1 takes the
+    ``all_reduce`` MIN of the per-query minima, direction 2 the
+    ``all_reduce`` SUM of the shard sums over the global M.  ``nn="exact"``
+    equals :func:`chamfer_distance` of the whole clouds; ``"clustered"``
+    prunes within each shard.  Forward only, as in the JAX package."""
+    if x.requires_grad or y.requires_grad:
+        raise ValueError("chamfer_distance_sharded is forward only: its inputs must not "
+                         "require a gradient (use chamfer_distance to train)")
+    dx, dy_sum = chamfer_shard_terms(x, y, nn)
+    dist.all_reduce(dx, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(dy_sum, op=dist.ReduceOp.SUM, group=group)
+    return dx.mean(dim=1) + dy_sum / (y.shape[1] * dist.get_world_size(group))
+
+
 def mesh_chamfer_distance(
     verts: torch.Tensor,
     faces: torch.Tensor,
@@ -140,6 +184,7 @@ def mesh_chamfer_distance(
     repeat: int = 3,
     nn: str = "exact",
     draws: tuple | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Chamfer distance between a mesh (``num`` sampled points, averaged
     over ``repeat`` samplings) and a ground-truth cloud → (B,).
@@ -153,12 +198,15 @@ def mesh_chamfer_distance(
     the distinct gt clouds once and tiles the sorted frame itself),
     ``nn="xla"`` the plain brute force (the benchmark baseline).  ``draws``
     hands in the sampler's random numbers
-    (:func:`ops.sample.draw_sample_noise`) in place of ``generator``.
+    (:func:`ops.sample.draw_sample_noise`) in place of ``generator``;
+    ``shard`` takes this rank's rows of the global batch's draw
+    (:func:`ops.sample.batch_sample`).
     """
     if nn not in ("exact", "clustered", "xla"):
         raise ValueError(f"nn={nn!r}: expected 'exact', 'clustered' or 'xla'")
     b = verts.shape[0]
-    pts = batch_sample(verts, faces, num * repeat, generator=generator, draws=draws)
+    pts = batch_sample(verts, faces, num * repeat, generator=generator, draws=draws,
+                       shard=shard)
     preds = torch.cat(torch.split(pts, num, dim=1), dim=0)  # (R*B, num, 3)
     if nn == "clustered":
         cd = chamfer_clustered_tiled_gt(preds, gt_points, repeat)

@@ -141,16 +141,25 @@ def batch_sample(
     num: int = 10000,
     generator: torch.Generator | None = None,
     draws: tuple | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Sample ``num`` points per mesh, proportional to face area.
 
     verts: (B, V, 3) float, faces: (F, 3) int64 (shared across the batch) →
     (B, num, 3), differentiable in ``verts``.  ``draws`` = (e, u, v) from
     :func:`draw_sample_noise` replaces the draw from ``generator``.
+    ``shard=(index, count)``: ``verts`` is rows ``index * B`` to
+    ``(index + 1) * B`` of a global batch of ``count * B`` meshes, which
+    ``generator`` draws for whole, so the points do not depend on
+    ``count``.
     """
     b = verts.shape[0]
-    if draws is None:
+    if draws is None and shard is None:
         draws = draw_sample_noise(b, num, generator, verts.device, verts.dtype)
+    elif draws is None:
+        index, count = shard
+        noise = draw_sample_noise(b * count, num, generator, verts.device, verts.dtype)
+        draws = tuple(t[index * b : (index + 1) * b] for t in noise)
     e, u, v = draws
     idx = sample_faces(verts, faces, e)
     su = torch.sqrt(u)

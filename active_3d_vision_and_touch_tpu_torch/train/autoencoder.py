@@ -31,6 +31,7 @@ from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
 from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
+from active_3d_vision_and_touch_tpu_torch.utils.viz import write_png
 
 
 def build_autoencoder(config, device="cuda") -> MeshAutoEncoder:
@@ -107,6 +108,7 @@ class AutoencoderEngine(ReconEngine):
             num=self.config.number_points,
             nn=self.config.loss_nn,
             draws=draws,
+            shard=self.shard,
         )
         return self.config.loss_coeff * cd.mean()
 
@@ -139,8 +141,6 @@ class AutoencoderEngine(ReconEngine):
         """Latent-space nearest-neighbour collages: for random anchors, tile
         the images of their closest distinct latents (the reference's
         qualitative AE eval, ``autoencoder/train.py:316-346``)."""
-        from PIL import Image
-
         latents, names = self.collect_latents(loader)
         os.makedirs(out_dir, exist_ok=True)
         rng = np.random.default_rng(seed)
@@ -158,12 +158,8 @@ class AutoencoderEngine(ReconEngine):
                 row.append(os.path.join(image_dir, obj + ".npy"))
                 if len(row) == neighbors + 1:
                     break
-            tiles = [np.load(p) for p in row]
-            dim = tiles[0].shape[0]
-            collage = Image.new("RGB", (dim * len(tiles), dim))
-            for i, tile in enumerate(tiles):
-                collage.paste(Image.fromarray(tile.astype(np.uint8)), (i * dim, 0))
+            collage = np.concatenate([np.load(p).astype(np.uint8) for p in row], axis=1)
             path = os.path.join(out_dir, f"valid_{v}.png")
-            collage.save(path)
+            write_png(path, collage)
             paths.append(path)
         return paths

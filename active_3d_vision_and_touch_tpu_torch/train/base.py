@@ -1,21 +1,41 @@
 """Engine base: the train/validate/checkpoint/early-stop loop shared by the
 reconstruction trainers.
 
-Port of the JAX package's ``train/base.py`` without the device mesh: one
-process drives one device.  The engine owns its module and optimizer and
-updates them in place; each step's randomness comes from a
-``torch.Generator`` seeded from (config seed, step), as the JAX engine folds
-the step into its key.
+Port of the JAX package's ``train/base.py``.  One process drives one
+device.  The engine owns its module and optimizer and updates them in
+place; each step's randomness comes from a ``torch.Generator`` seeded from
+(config seed, step), as the JAX engine folds the step into its key.
+
+Across ranks.  An engine built while a ``torch.distributed`` process group
+is up trains data-parallel over its ranks, as the JAX engine does over a
+``data_parallel_mesh`` of as many devices: each rank takes an equal share
+of the global batch (``Loader(process_shard=(rank, world))``), draws the
+*global* batch's sampler noise from the step's generator and keeps its own
+rows, so no draw depends on the number of ranks; its BatchNorms normalise
+over the global batch (``models/vision.py::sync_batchnorm_``) when there
+is more than one rank; the gradients are averaged and the losses reported
+as their global mean.  Every rank draws the same weights from the config's
+seed and takes rank 0's at ``build`` (after a checkpoint is restored);
+rank 0 alone writes the config, the metrics and the checkpoints, with a
+barrier before the others read them.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from active_3d_vision_and_touch_tpu_torch.core.config import save_config
+from active_3d_vision_and_touch_tpu_torch.models.vision import sync_batchnorm_
+from active_3d_vision_and_touch_tpu_torch.parallel import (
+    average_gradients,
+    global_mean,
+    replicate,
+)
 from active_3d_vision_and_touch_tpu_torch.train.common import (
     CheckpointManager,
     EarlyStop,
@@ -45,7 +65,9 @@ def host_to_device(arr, device: torch.device) -> torch.Tensor:
 
 class ReconEngine:
     """Subclasses set ``self.model`` and ``self.optimizer`` before calling
-    ``super().__init__`` and define ``_loss`` plus ``loss_tag``."""
+    ``super().__init__`` and define ``_loss`` plus ``loss_tag``.  ``_loss``
+    hands ``self.shard`` to the sampler, which then draws the global
+    batch's noise and keeps this rank's rows."""
 
     loss_tag = "loss"
 
@@ -53,13 +75,21 @@ class ReconEngine:
         self.config = config
         self.device = resolve_device(device)
         self.epoch = 0
+        # the process group this engine trains over, fixed when it is built
+        self.group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+        self.rank = dist.get_rank() if self.group is not None else 0
+        self.world = dist.get_world_size() if self.group is not None else 1
+        self.shard = (self.rank, self.world) if self.group is not None else None
         self.ckpt = CheckpointManager(config.checkpoint_dir)
         self.early_stop = EarlyStop(config.patience)
         self.writer = (
-            MetricsWriter(config.tensorboard_dir, config.exp_id) if log else None
+            MetricsWriter(config.tensorboard_dir, config.exp_id)
+            if log and self.rank == 0 else None
         )
-        if not config.eval:
+        if not config.eval and self.rank == 0:
             save_config(config.checkpoint_dir, config)
+        if self.world > 1:
+            sync_batchnorm_(self.model, self.group)
         self.built = False
 
     def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
@@ -67,20 +97,30 @@ class ReconEngine:
         raise NotImplementedError
 
     def train_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
-        """One optimizer step on ``batch``; returns the loss (on the device).
+        """One optimizer step on ``batch`` (this rank's rows, across ranks);
+        returns the loss (on the device; across ranks the global batch's).
         ``draws`` (see :func:`ops.sample.draw_sample_noise`) replaces the
         sampler's draw from ``generator``."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(batch, generator, draws)
         loss.backward()
+        if self.group is not None:
+            average_gradients(self.model, self.group)
+            loss = global_mean(loss, self.group)
         self.optimizer.step()
         return loss.detach()
 
     def eval_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
         self.model.eval()
         with torch.no_grad():
-            return self._loss(batch, generator, draws)
+            loss = self._loss(batch, generator, draws)
+            return loss if self.group is None else global_mean(loss, self.group)
+
+    def barrier(self) -> None:
+        """Wait for every rank (a no-op without a process group)."""
+        if self.group is not None:
+            dist.barrier(self.group)
 
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of step ``step``: a seed derived from (seed, step)."""
@@ -105,6 +145,7 @@ class ReconEngine:
 
     def build(self) -> None:
         """Resume from the ``recent`` checkpoint if there is one."""
+        self.barrier()
         restored = self.ckpt.restore("recent", map_location=self.device)
         if restored is not None:
             self.load_state_dict(restored)
@@ -112,12 +153,25 @@ class ReconEngine:
             self.epoch = int(meta.get("epoch", 0))
             if "early_stop" in meta:
                 self.early_stop.restore(meta["early_stop"])
+        if self.group is not None:
+            replicate(self.model, self.group)
         self.built = True
+
+    def _steps(self, loader) -> int | None:
+        """Across ranks, the least of the ranks' batch counts, so that every
+        rank runs the same steps and each step's collectives meet (ranks'
+        shares of a dataset that does not split evenly may differ by a
+        batch); ``None`` (every batch) without a process group."""
+        if self.group is None:
+            return None
+        count = torch.tensor([len(loader)], device=self.device)
+        dist.all_reduce(count, op=dist.ReduceOp.MIN, group=self.group)
+        return int(count)
 
     def run_epoch(self, loader, train: bool = True) -> float:
         losses = []
         step_base = self.epoch * 100_000
-        for i, batch in enumerate(loader):
+        for i, batch in enumerate(itertools.islice(loader, self._steps(loader))):
             batch = self.to_device(batch)
             gen = self.step_generator(step_base + i)
             step = self.train_step if train else self.eval_step
@@ -143,11 +197,14 @@ class ReconEngine:
                 self.writer.scalar(f"train_{self.loss_tag}", train_loss, epoch)
                 self.writer.scalar(f"valid_{self.loss_tag}", valid_loss, epoch)
                 self.writer.scalar("epoch_seconds", time.time() - t0, epoch)
+            # every rank has the same losses, so the same early stop
             improved = self.early_stop.update(valid_loss)
-            meta = {"epoch": epoch + 1, "early_stop": self.early_stop.state()}
-            self.ckpt.save(self.state_dict(), "recent", meta=meta)
-            if improved:
-                self.ckpt.save(self.state_dict(), "best")
+            if self.rank == 0:
+                meta = {"epoch": epoch + 1, "early_stop": self.early_stop.state()}
+                self.ckpt.save(self.state_dict(), "recent", meta=meta)
+                if improved:
+                    self.ckpt.save(self.state_dict(), "best")
+            self.barrier()
             if self.early_stop.should_stop:
                 break
         return self.early_stop.best
@@ -155,6 +212,7 @@ class ReconEngine:
     def evaluate(self, loader) -> float:
         if not self.built:
             self.build()
+        self.barrier()
         restored = self.ckpt.restore("best", map_location=self.device)
         if restored is not None:
             self.load_state_dict(restored)

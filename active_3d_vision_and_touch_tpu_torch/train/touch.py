@@ -48,6 +48,7 @@ class TouchEngine(ReconEngine):
             num=self.config.num_samples,
             nn=self.config.loss_nn,
             draws=draws,
+            shard=self.shard,
         )
         return self.config.loss_coeff * cd.mean()
 

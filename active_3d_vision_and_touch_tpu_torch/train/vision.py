@@ -9,6 +9,7 @@ between the deformed mesh, sampled at number_points, and gt_points.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, vision_charts
@@ -20,6 +21,7 @@ from active_3d_vision_and_touch_tpu_torch.models.vision import (
 )
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
 from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
+from active_3d_vision_and_touch_tpu_torch.utils.viz import visualize_prediction
 
 
 def deformation_geometry(config: VisionConfig, device="cuda"):
@@ -88,5 +90,43 @@ class VisionEngine(ReconEngine):
             num=self.config.number_points,
             nn=self.config.loss_nn,
             draws=draws,
+            shard=self.shard,
         )
         return self.config.loss_coeff * cd.mean()
+
+    def evaluate_detailed(self, loader, visualize_dir: str | None = None,
+                          max_visualize: int = 8) -> tuple[float, list[dict]]:
+        """Per-object Chamfer distance over a loader, the exact search (K1
+        on the card) at ``number_points``, and with ``visualize_dir`` the
+        first ``max_visualize`` predictions rendered beside their gt clouds
+        (the reference's eval + --visualize path, ``vision/train.py:159-208``).
+        Batch i draws from ``step_generator(i)``.  Returns (mean_cd,
+        [{"name", "cd"}, ...]), names from ``batch["names"][j][0]``."""
+        if not self.built:
+            self.build()
+        self.model.eval()
+        per_object, rendered = [], 0
+        for i, batch in enumerate(loader):
+            names = batch.get("names", None)
+            arrays = self.to_device(batch)
+            with torch.no_grad():
+                verts, _ = self.forward(arrays)
+                cds = self.config.loss_coeff * mesh_chamfer_distance(
+                    verts, self.faces, arrays["gt_points"], self.step_generator(i),
+                    num=self.config.number_points,
+                )
+            cds = cds.cpu().numpy()
+            for j, cd in enumerate(cds):
+                per_object.append({"name": str(names[j][0]) if names else str(j), "cd": float(cd)})
+            if visualize_dir and rendered < max_visualize:
+                take = min(len(cds), max_visualize - rendered)
+                visualize_prediction(
+                    visualize_dir,
+                    verts[:take].cpu().numpy(),
+                    self.faces.cpu().numpy(),
+                    [p["name"] for p in per_object[-len(cds):][:take]],
+                    gt_points=arrays["gt_points"][:take].cpu().numpy(),
+                )
+                rendered += take
+        mean_cd = float(np.mean([p["cd"] for p in per_object])) if per_object else float("nan")
+        return mean_cd, per_object

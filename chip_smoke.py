@@ -59,7 +59,17 @@ package, and runs these phases in order; any failure exits non-zero:
    cache, a greedy episode whose first step grasps every pair live,
    launching K1 as the same episode on the chart cache does, with live and
    cached signals compared; the simulator's own times, and its native
-   rasterizer against the numpy one;
+   rasterizer against the numpy one.  Then the multi-rank layer in a
+   process group of one rank on NCCL (a ``FileStore`` under
+   ``build/chip_smoke/``): ``chamfer_distance_sharded``, exact and
+   clustered, at (48, 30000)x30000 against the unsharded Chamfer (exact to
+   rtol 1e-6, clustered never below exact); the same cloud cut into 4
+   shards run one after the other through ``chamfer_shard_terms`` and
+   combined by MIN and SUM (K1 at (48, 30000)x7500 and (48, 7500)x30000,
+   K3 on 7500-point shards, each checked against its plain version and
+   timed); one ``VisionEngine(VisionConfig())`` train step under the group
+   against the same step without one, on the same weights and draws, with
+   the BatchNorms on their running statistics and in train mode;
 5. the outputs: the full-width losses with the kernels against the same
    step on the plain versions (the sampler's backward included) for the
    exact vision step and the autoencoder step, the sampler's backward alone
@@ -72,7 +82,14 @@ package, and runs these phases in order; any failure exits non-zero:
    the time it waits for the card; no outer-dimension scan (a ``cumsum``
    over the sample axis, which the sampler's backward has no need of) may
    be among them;
-7. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
+7. the command line (``python -m active_3d_vision_and_touch_tpu_torch.cli``)
+   in subprocesses on the generated world: ``train-touch``,
+   ``make-touch-charts``, ``train-vision``, ``train-auto`` (one epoch each,
+   batches cut to what 8 objects' splits hold) and ``policy even
+   --visualize``, each to exit 0; ``VisionEngine.evaluate_detailed`` with
+   ``visualize_dir`` on the trained checkpoint; every PNG checked for its
+   signature and its size; ``bench`` in full;
+8. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,6 +111,7 @@ import numpy as np
 import torch
 
 from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
+from active_3d_vision_and_touch_tpu_torch.bench import bench_batch as main_batch  # bench.py's batch
 from active_3d_vision_and_touch_tpu_torch.active.policies.ddqn import DDQNEngine
 from active_3d_vision_and_touch_tpu_torch.active.policies.nearest import NearestNeighborEngine
 from active_3d_vision_and_touch_tpu_torch.active.policies.simple import EvenEngine
@@ -105,6 +123,7 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
     SimConfig,
     TouchConfig,
     VisionConfig,
+    load_config,
 )
 from active_3d_vision_and_touch_tpu_torch.data import (
     ActiveDataset,
@@ -129,7 +148,13 @@ from active_3d_vision_and_touch_tpu_torch.ops import chamfer as chamfer_module
 from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
 from active_3d_vision_and_touch_tpu_torch.ops import sample as sampler
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all, nvcc_path
-from active_3d_vision_and_touch_tpu_torch.ops.chamfer import chamfer_distance, min_dists, min_dists_plain
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer import (
+    chamfer_distance,
+    chamfer_distance_sharded,
+    chamfer_shard_terms,
+    min_dists,
+    min_dists_plain,
+)
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import chamfer_clustered_tiled_gt
 from active_3d_vision_and_touch_tpu_torch.ops.sample import (
     batch_sample,
@@ -164,6 +189,7 @@ from active_3d_vision_and_touch_tpu_torch.train.autoencoder import (
 )
 from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
+from active_3d_vision_and_touch_tpu_torch.utils import viz
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -257,17 +283,6 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def main_batch(cfg: VisionConfig, seed: int = 0) -> dict:
-    """A seeded random batch shaped as bench.py's."""
-    rng = np.random.default_rng(seed)
-    b = cfg.batch_size
-    return {
-        "img": rng.uniform(size=(b, 256, 256, 3)).astype(np.float32),
-        "gt_points": rng.normal(size=(b, cfg.number_points, 3)).astype(np.float32) * 0.1,
-        "touch_charts": rng.normal(size=(b, cfg.num_grasps, 4, 25, 4)).astype(np.float32) * 0.1,
-    }
 
 
 def surface_clouds(b: int, n: int, g: torch.Generator, dev: torch.device) -> torch.Tensor:
@@ -1811,6 +1826,272 @@ def phase_simulator(root: Path, names: list) -> None:
               f"the native rasterizer disagrees with the numpy one on the {label} view")
 
 
+def time_k3_shard(x: torch.Tensor, y: torch.Tensor, label: str) -> dict:
+    """The queries ``x`` against the shard ``y``, both sorted and padded as
+    ``min_dists_clustered`` does: the selection kernel's table and K3
+    against their plain versions, K3's neighbours against K1's, then K3's
+    times beside its bound and its plain version."""
+    xs = cluster._edge_pad_points(cluster._sort_by_morton(x)[0], 256).contiguous()
+    ys = cluster._edge_pad_points(cluster._sort_by_morton(y)[0], CHUNK).contiguous()
+    ids, _ = check_select(xs, ys, CHUNK, CHUNKS_PER_TILE, label)
+    check_cluster(xs, ys, ids, CHUNK, label)
+    check_against_exact(xs, ys, cluster.nn_cluster(xs, ys, ids, CHUNK)[1], label)
+    b, n, t = xs.shape[0], xs.shape[1], ids.shape[2]
+    pairs = b * n * t * CHUNK
+    moved = (xs.numel() + ys.numel() + ids.numel() + 2 * b * n) * 4
+    return {
+        "ms": time_ms(lambda: cluster.nn_cluster(xs, ys, ids, CHUNK), 20),
+        "plain_ms": time_ms(lambda: cluster.nn_cluster_plain(xs, ys, ids, CHUNK), 3),
+        "library_ms": None,
+        "bound_ms": max(9.0 * pairs / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
+        "bound_by": "operations" if 9.0 * pairs / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
+        "table": [t, ys.shape[1] // CHUNK],
+    }
+
+
+def shards_combined(x: torch.Tensor, y: torch.Tensor, shards: int, nn: str) -> torch.Tensor:
+    """``y``'s point axis cut into ``shards`` shards run one after the other
+    through ``chamfer_shard_terms``, combined as the collectives would:
+    the MIN of the per-query minima, the SUM of the shard sums."""
+    terms = [chamfer_shard_terms(x, ys, nn) for ys in torch.chunk(y, shards, dim=1)]
+    dx = torch.stack([d for d, _ in terms]).amin(dim=0)
+    dy = torch.stack([s for _, s in terms]).sum(dim=0)
+    return dx.mean(dim=1) + dy / y.shape[1]
+
+
+def counted(label: str, expected: dict, fn):
+    """``fn()`` with the launch counters from 0, checked after."""
+    held = torch.cuda.memory_allocated()
+    count_from_zero()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(label, {k.name: 0 for k in KERNELS} | expected, held)
+
+
+def phase_parallel(dev: torch.device) -> tuple[dict, dict, dict]:
+    """The multi-rank layer at world 1 on NCCL (a ``FileStore`` under
+    ``build/chip_smoke/``): ``chamfer_distance_sharded`` exact and clustered
+    at (48, 30000)x30000 against the unsharded Chamfer; the same cloud as 4
+    shards run one after the other through ``chamfer_shard_terms`` (K1 at
+    (48, 30000)x7500 and (48, 7500)x30000, K3 on 7500-point shards); one
+    ``VisionEngine(VisionConfig())`` train step under the group against the
+    same step without one.  Returns the launches by path and K1's and K3's
+    numbers at the shard shapes."""
+    import torch.distributed as dist
+
+    n = MAIN["number_points"]
+    plain_cfg = VisionConfig(eval=True, exp_id="parallel_plain", experiments_root=EXPERIMENTS)
+    plain = VisionEngine(plain_cfg, log=False)  # built before the group: one device
+    store_dir = Path(EXPERIMENTS) / "parallel"
+    store_dir.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_dir / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        launches = {}
+        g = torch.Generator(device=dev).manual_seed(11)
+        x, y = surface_clouds(48, n, g, dev), surface_clouds(48, n, g, dev)
+        k1, k3, sel = NN_EXACT.name, NN_CLUSTER.name, SELECT_CHUNKS.name
+        exact, launches["sharded exact (world 1)"] = counted(
+            "sharded exact (world 1)", {k1: 2}, lambda: chamfer_distance_sharded(x, y, nn="exact"))
+        clustered, launches["sharded clustered (world 1)"] = counted(
+            "sharded clustered (world 1)", {k3: 2, sel: 2},
+            lambda: chamfer_distance_sharded(x, y, nn="clustered"))
+        whole = chamfer_distance(x, y)
+        whole_clustered = cluster.chamfer_distance_clustered(x, y)
+        four, launches["4 shards exact"] = counted(
+            "4 shards exact", {k1: 8}, lambda: shards_combined(x, y, 4, "exact"))
+        four_clustered, launches["4 shards clustered"] = counted(
+            "4 shards clustered", {k3: 8, sel: 8}, lambda: shards_combined(x, y, 4, "clustered"))
+        rel = lambda a, b: float(((a - b).abs() / b.abs()).max())  # noqa: E731
+        print(f"  [parallel] sharded exact at world 1 against chamfer_distance: max rel err "
+              f"{rel(exact, whole):.3e}; 4 in-process shards: {rel(four, whole):.3e}")
+        print(f"  [parallel] clustered over exact, max (min) relative excess: world 1 "
+              f"{float((clustered / exact).max() - 1):.3e} ({float((clustered / exact).min() - 1):.3e}), "
+              f"4 shards {float((four_clustered / four).max() - 1):.3e} "
+              f"({float((four_clustered / four).min() - 1):.3e}); unsharded clustered "
+              f"{float((whole_clustered / whole).max() - 1):.3e}")
+        check(rel(exact, whole) <= 1e-6 and rel(four, whole) <= 1e-6,
+              "the sharded exact Chamfer disagrees with the unsharded one")
+        # each query's clustered distance is at least its exact one, and the
+        # sums run in the same order: never below, not even by rounding
+        check(bool((clustered >= exact).all() and (four_clustered >= four).all()),
+              "the sharded clustered Chamfer fell below the exact one")
+        times = {
+            "sharded_exact_ms": time_ms(lambda: chamfer_distance_sharded(x, y, nn="exact"), 5),
+            "sharded_clustered_ms": time_ms(lambda: chamfer_distance_sharded(x, y, nn="clustered"), 5),
+            "four_shards_exact_ms": time_ms(lambda: shards_combined(x, y, 4, "exact"), 5),
+            "four_shards_clustered_ms": time_ms(lambda: shards_combined(x, y, 4, "clustered"), 5),
+            "unsharded_exact_ms": time_ms(lambda: chamfer_distance(x, y), 5),
+        }
+        print("  [parallel] times, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in times.items()))
+        ys = y[:, : n // 4].contiguous()
+        check_nn(x, ys, "shard x->y")
+        check_nn(ys, x, "shard y->x")
+        nn = {"shard_x_to_y": time_nn(x, ys, 3), "shard_y_to_x": time_nn(ys, x, 3)}
+        k3_times = {"shard_x_to_y": time_k3_shard(x, ys, "shard x->y"),
+                    "shard_y_to_x": time_k3_shard(ys, x, "shard y->x")}
+        for label, t in nn.items():
+            print(f"  nn_exact at the {label} shape {'(48, 30000)x7500' if 'x_to' in label else '(48, 7500)x30000'}: "
+                  f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  bound {t['bound_ms']:.4f} ms "
+                  f"(operations), of which the kernel reaches {t['bound_ms'] / t['ms']:.3f}")
+        for label, t in k3_times.items():
+            print(f"  nn_cluster at the {label} shape, T {t['table'][0]} of {t['table'][1]} chunks: "
+                  f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})")
+
+        # one train step of the default vision trainer under the group
+        cfg = VisionConfig(eval=True, exp_id="parallel_group", experiments_root=EXPERIMENTS)
+        grouped = VisionEngine(cfg, log=False)
+        check(grouped.group is not None and grouped.world == 1 and plain.group is None,
+              "the engines did not see the process group as expected")
+        start = copy.deepcopy(plain.state_dict())  # the weights and a fresh optimizer
+        grouped.load_state_dict(start)
+        batch = grouped.to_device(surface_batch(cfg, dev))
+        # the BatchNorms on their running statistics, the mode in which
+        # check_step_against_plain holds a step's gradients to 1e-3 of each
+        # norm: in train mode the card's atomic adds (index_add_,
+        # grid_sample) move some gradients by 1e-3 of their norm between
+        # two runs of one step, and those of the conv biases that feed a
+        # BatchNorm, zero in exact arithmetic, by all of it
+        steps = {}
+        for label, engine in (("group", grouped), ("plain", plain)):
+            engine.model.train = lambda mode=True, m=engine.model: torch.nn.Module.train(m, False)
+            try:
+                loss = float(engine.train_step(batch, engine.step_generator(0)))
+            finally:
+                del engine.model.train
+            steps[label] = (loss, {k: p.grad.clone() for k, p in engine.model.named_parameters()})
+            engine.load_state_dict(start)
+        (loss_g, grads_g), (loss_p, grads_p) = steps["group"], steps["plain"]
+        ratios = sorted((float((grads_g[k] - g).norm() / g.norm()), k) for k, g in grads_p.items())
+        print(f"  [parallel] step under the group against without, BatchNorms on their running "
+              f"statistics: loss {loss_g} and {loss_p}; worst gradient norm ratios "
+              f"{[(k, f'{r:.3e}') for r, k in ratios[-3:]]}")
+        check(abs(loss_g - loss_p) <= 1e-6 * abs(loss_p) and ratios[-1][0] <= 1e-3,
+              "the train step under the group changed the loss or a gradient")
+
+        # the same step in train mode: its BatchNorms normalise over the batch
+        before = {k: p.detach().clone() for k, p in plain.model.named_parameters()}
+        loss_g, launches["train step under the group"] = counted(
+            "train step under the group", {k3: 2, sel: 2, SEGSUM.name: 2},
+            lambda: float(grouped.train_step(batch, grouped.step_generator(0))))
+        loss_p = float(plain.train_step(batch, plain.step_generator(0)))
+        pairs = list(zip(grouped.model.parameters(), plain.model.parameters(), before.values()))
+        # Adam's first step is about lr * sign(g) in every element, so an
+        # element whose gradient is rounding noise (atomic adds in the
+        # backward) may step the other way: the share of elements whose
+        # update differs by more than 2% of lr is held below 1e-3
+        lr = cfg.lr
+        moved = sum(int(((a - b).detach().abs() > 0.02 * lr).sum()) for a, b, _ in pairs)
+        share = moved / sum(a.numel() for a, _, _ in pairs)
+        print(f"  [parallel] VisionEngine(VisionConfig()) train step under the group: loss {loss_g}, "
+              f"without a group {loss_p}; updates differing by more than 2% of lr (lr {lr}): "
+              f"{moved} elements, a share of {share:.3e}")
+        check(abs(loss_g - loss_p) <= 1e-6 * abs(loss_p), "the train step under the group changed the loss")
+        check(share <= 1e-3, "the train step under the group changed the update")
+    finally:
+        dist.destroy_process_group()
+    return launches, nn, k3_times
+
+
+def png_size(path: Path) -> tuple[int, int]:
+    """(height, width) from a PNG's IHDR; fails unless the file starts with
+    the PNG signature."""
+    data = path.read_bytes()[:24]
+    check(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", f"{path} is no PNG")
+    width, height = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+    return height, width
+
+
+def run_cli(args: list, label: str, timeout: int = 600) -> tuple[str, float]:
+    """``python -m active_3d_vision_and_touch_tpu_torch.cli <args>`` from the
+    checkout; fails unless it exits with 0.  Returns its standard output
+    and wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "active_3d_vision_and_touch_tpu_torch.cli", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    print(f"  [cli] {label}: exit {proc.returncode} in {seconds:.1f} s; last line: "
+          f"{(proc.stdout.strip().splitlines() or [''])[-1][:300]}")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n")
+    check(proc.returncode == 0, f"the command line's {label} failed")
+    return proc.stdout, seconds
+
+
+def phase_cli(root: Path) -> dict:
+    """The command line in subprocesses on the generated world (8 objects:
+    2 in recon_train, 3 in auto_train, 1 each in RL_train, valid and test):
+    ``train-touch`` one epoch, ``make-touch-charts`` from its checkpoint,
+    ``train-vision`` one epoch (the clustered loss), ``train-auto`` one
+    epoch, ``policy even --visualize`` on the test object; then
+    ``VisionEngine.evaluate_detailed`` with ``visualize_dir`` on the vision
+    checkpoint, and ``bench`` in full.  Batches are cut to what the splits
+    hold: vision 2, autoencoder 3, env batch 1.  Every PNG is checked for
+    its signature and its IHDR size.  Returns the wall seconds by command."""
+    exp = Path(EXPERIMENTS) / "cli"
+    common = ["--root", str(root), "--experiments-root", str(exp), "--epochs", "1"]
+    ckpt = lambda exp_id: str(exp / "checkpoint" / "test" / exp_id)  # noqa: E731
+    seconds = {}
+    results = ROOT / PolicyConfig(exp_id="even").results_dir  # relative to the checkout
+    shutil.rmtree(results, ignore_errors=True)
+    _, seconds["train-touch"] = run_cli(["train-touch", *common, "--exp-id", "touch"], "train-touch")
+    _, seconds["make-touch-charts"] = run_cli(
+        ["make-touch-charts", "--root", str(root), "--touch-location", ckpt("touch")],
+        "make-touch-charts")
+    _, seconds["train-vision"] = run_cli(
+        ["train-vision", *common, "--exp-id", "vision", "--batch-size", "2"], "train-vision")
+    _, seconds["train-auto"] = run_cli(
+        ["train-auto", *common, "--exp-id", "auto", "--batch-size", "3",
+         "--vision-location", ckpt("vision")], "train-auto")
+    out, seconds["policy even"] = run_cli(
+        ["policy", "even", "--root", str(root), "--experiments-root", str(exp), "--eval",
+         "--visualize", "--env-batch-size", "1", "--exp-id", "even",
+         "--touch-location", ckpt("touch"), "--vision-location", ckpt("vision"),
+         "--auto-location", ckpt("auto")], "policy even --visualize")
+    summary = json.loads(out.strip().splitlines()[-1])
+    check(np.isfinite(summary["pct_cd_remaining"]), "the even policy's result is not finite")
+    num_actions = PolicyConfig().num_actions
+    for name, size in (("histogram.png", (viz._HIST_PLOT_H + 2 * viz._HIST_MARGIN,
+                                          num_actions * viz._HIST_BAR + 2 * viz._HIST_MARGIN)),
+                       ("sphere_projection.png", (2 * num_actions, 4 * num_actions))):
+        check(png_size(results / name) == size, f"{name}: not the promised {size}")
+
+    t0 = time.perf_counter()
+    cfg = load_config(ckpt("vision"), VisionConfig)
+    cfg.eval = True
+    engine = VisionEngine(cfg, log=False)
+    restored = engine.ckpt.restore("best", map_location=engine.device)
+    check(restored is not None, "train-vision wrote no best checkpoint")
+    engine.load_state_dict(restored)
+    dataset = VisionDataset(str(root), "valid", use_img=cfg.use_img, use_touch=cfg.use_touch,
+                            finger=cfg.finger, num_grasps=cfg.num_grasps,
+                            number_points=cfg.number_points, eval_mode=True)
+    held = torch.cuda.memory_allocated()
+    count_from_zero()
+    viz_dir = exp / "evaluate_detailed"
+    mean_cd, per_object = engine.evaluate_detailed(Loader(dataset, 2, shuffle=False), str(viz_dir))
+    torch.cuda.synchronize()
+    seconds["evaluate_detailed"] = time.perf_counter() - t0
+    # 2 exact searches a batch of 2, no backward
+    launches = read_counts("evaluate_detailed", {k.name: 0 for k in KERNELS}
+                           | {NN_EXACT.name: len(per_object)}, held)
+    print(f"  [cli] evaluate_detailed: {len(per_object)} objects, mean CD {mean_cd}, "
+          f"{seconds['evaluate_detailed']:.1f} s")
+    check(np.isfinite(mean_cd) and len(per_object) == 4, "evaluate_detailed gave no finite result")
+    pngs = sorted(viz_dir.rglob("*.png"))
+    check(len(pngs) >= 2, "evaluate_detailed rendered nothing")
+    for path in pngs:
+        check(png_size(path) == (256, 256), f"{path}: not 256x256")
+
+    out, seconds["bench"] = run_cli(["bench"], "bench", timeout=900)
+    payload = json.loads(out.strip().splitlines()[-1])
+    print(f"  [cli] bench: {json.dumps(payload)}")
+    check(payload["value"] > 0 and payload["vs_baseline"] > 0, "the benchmark measured nothing")
+    print(f"  [cli] wall seconds by command: {seconds}")
+    return {"evaluate_detailed": launches, "seconds": seconds, "bench": payload}
+
+
 def loss_and_grads(engine, batch: dict, seed: int):
     engine.model.eval()  # running statistics: the two passes see one model
     engine.model.zero_grad(set_to_none=True)
@@ -2036,6 +2317,11 @@ def main() -> int:
         dev, timing[NN_CLUSTER.name]["agreement_with_exact"])
     launches["env live"] = phase_env_live(dev, gen_root, touch_engine)
     phase_simulator(gen_root, gen_names)
+    print("== 4b the multi-rank layer at world 1 (NCCL), the sharded Chamfer")
+    parallel_launches, nn_shards, k3_shards = phase_parallel(dev)
+    launches.update(parallel_launches)
+    timing[NN_EXACT.name].update(nn_shards)
+    timing[NN_CLUSTER.name].update(k3_shards)
     print("== 5 outputs")
     phase_outputs(paths)
     print("== 6 profile")
@@ -2044,6 +2330,9 @@ def main() -> int:
         phase_profile(lambda: engine.train_step(batch, gen), f"{label} train step")
     phase_profile(env.best_action, "env greedy selection (every grasp scored)")
     phase_profile(ddqn_episode_run, "DDQN episode (latent; 5 env steps, 5 updates)")
+    print("== 7 the command line on the generated world, evaluate_detailed, bench")
+    cli_run = phase_cli(gen_root)
+    launches["evaluate_detailed"] = cli_run["evaluate_detailed"]
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     sources = {

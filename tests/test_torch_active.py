@@ -408,8 +408,9 @@ def test_policy_engine_without_an_env_reads_the_chart_cache(world, tmp_path, mon
     """A policy engine built from checkpoint locations (configs, no
     checkpoints) copies the frozen vision model's setting into its config,
     builds the autoencoder its config names, reads its signals from the data
-    root's chart cache, and refuses ``visualize`` after saving its result
-    (the plots are not ported yet)."""
+    root's chart cache, and with ``visualize`` draws the action plots
+    beside its result: the sphere map equal to the JAX package's for the
+    same actions."""
     monkeypatch.chdir(tmp_path)
     vision = {k: v for k, v in SMALL.items() if k in VisionConfig.__dataclass_fields__}
     save_config(str(tmp_path / "vision"), VisionConfig(**vision))
@@ -421,10 +422,19 @@ def test_policy_engine_without_an_env_reads_the_chart_cache(world, tmp_path, mon
     assert isinstance(engine, PolicyEngine)
     assert cfg.num_gcn_layers == SMALL["num_gcn_layers"]
     assert engine.env.auto_model.encoding_size == AE["encoding_size"]
-    with pytest.raises(NotImplementedError, match=r"§1 item 3\)"):
-        engine.evaluate(split="test")
+    result = engine.evaluate(split="test")
     with open(os.path.join(cfg.results_dir, "eval.json")) as f:
         assert np.isfinite(json.load(f)["pct_cd_remaining"])
+    from PIL import Image
+
+    from active_3d_vision_and_touch_tpu.utils.viz import visualize_actions
+
+    visualize_actions(str(tmp_path / "jax_plots"), result.actions, cfg.num_actions,
+                      use_img=cfg.use_img)
+    ours, theirs = (np.asarray(Image.open(os.path.join(d, "sphere_projection.png")))
+                    for d in (cfg.results_dir, tmp_path / "jax_plots"))
+    np.testing.assert_array_equal(ours, theirs)
+    assert os.path.exists(os.path.join(cfg.results_dir, "histogram.png"))
 
 
 def test_loader_matches_jax_and_raises_a_worker_error(world):
