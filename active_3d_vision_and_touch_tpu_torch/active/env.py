@@ -17,6 +17,14 @@ chart cache lacks is grasped live at its first use.
 
 Vertex mask codes: 0 failed grasp, 1 grasp without touch (chart collapsed
 to the sensor's position), 2 successful touch, 3 vision chart.
+
+Spans (``utils/profiler.py``, recorded under a profiler): ``env.reset`` over
+the simulator's ``sim.load_objects``, ``env.prime_cache`` and ``env.obs``;
+``env.step`` over ``env.apply_signals`` and ``env.obs``;
+``env.score_candidates`` over one ``env.score_chunk`` a chunk; ``env.fetch``
+around each copy from the card to the host.  Counters: ``env.signal_hits``
+and ``env.signal_misses`` (a grasp's signals found in the cache or
+simulated), ``env.signal_cache_clears``.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from active_3d_vision_and_touch_tpu_torch.train.vision import (
     build_deformation,
     deformation_geometry,
 )
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, span
 
 _CODE_OF = {"touch": 2, "no_touch": 1, "no_intersection": 0}
 
@@ -112,6 +121,13 @@ class ActiveTouchEnv:
         card's work."""
         return host_to_device(arr, self.device)
 
+    @staticmethod
+    def _fetch(t: torch.Tensor) -> np.ndarray:
+        """``t`` copied to the host, which waits for the card's work queued
+        before it."""
+        with span("env.fetch"):
+            return t.cpu().numpy()
+
     @torch.inference_mode()
     def _predict_touch(self, touch, pos, rot) -> torch.Tensor:
         return self.touch_model(touch, pos, rot, self.chart_verts)
@@ -169,34 +185,37 @@ class ActiveTouchEnv:
         """Start an episode on a new batch of objects (dict with ``names``
         path prefixes, ``gt_points`` and optionally ``img``)."""
         c = self.config
-        self.steps = 0
-        self.current = {
-            "batch": batch,
-            "mask": np.zeros((c.env_batch_size, c.num_actions), np.float32),
-            "first_score": None,
-            "touch_charts": np.zeros(self._chart_shape, np.float32),
-            "touch_masks": np.zeros(self._mask_shape, np.float32),
-            # the episode's image and gt cloud, moved to the device once
-            "gt_device": self._to_device(batch["gt_points"]),
-            "img_device": self._to_device(batch["img"]) if c.use_img else None,
-        }
-        self.sampler.load_objects(batch["names"], from_dataset=True)
-        if self._chart_cache_root is not None:
-            self._prime_signal_cache(batch["names"])
-        obs = self.compute_obs()
-        self.current["score"] = obs["score"]
-        return obs
+        with span("env.reset"):
+            self.steps = 0
+            self.current = {
+                "batch": batch,
+                "mask": np.zeros((c.env_batch_size, c.num_actions), np.float32),
+                "first_score": None,
+                "touch_charts": np.zeros(self._chart_shape, np.float32),
+                "touch_masks": np.zeros(self._mask_shape, np.float32),
+                # the episode's image and gt cloud, moved to the device once
+                "gt_device": self._to_device(batch["gt_points"]),
+                "img_device": self._to_device(batch["img"]) if c.use_img else None,
+            }
+            self.sampler.load_objects(batch["names"], from_dataset=True)
+            if self._chart_cache_root is not None:
+                with span("env.prime_cache"):
+                    self._prime_signal_cache(batch["names"])
+            obs = self.compute_obs()
+            self.current["score"] = obs["score"]
+            return obs
 
     def step(self, actions):
-        actions = np.asarray(actions).reshape(-1)
-        for i, a in enumerate(actions):
-            self.current["mask"][i, int(a)] = 1
-        obs = self.compute_obs(actions)
-        reward = self.current["score"] - obs["score"]
-        self.current["score"] = obs["score"]
-        self.steps += 1
-        done = self.steps == self.config.budget
-        return obs, reward, done
+        with span("env.step"):
+            actions = np.asarray(actions).reshape(-1)
+            for i, a in enumerate(actions):
+                self.current["mask"][i, int(a)] = 1
+            obs = self.compute_obs(actions)
+            reward = self.current["score"] - obs["score"]
+            self.current["score"] = obs["score"]
+            self.steps += 1
+            done = self.steps == self.config.budget
+            return obs, reward, done
 
     def check_step(self, actions) -> dict:
         """Score a candidate action without committing state."""
@@ -212,38 +231,39 @@ class ActiveTouchEnv:
         host builds chunk j+1's charts while the card scores chunk j.
         ``draws`` holds the sampler's draws for each chunk, in place of the
         env's generator."""
-        b, k = candidates.shape
-        nf = self.num_fingers
-        names = self.current["batch"]["names"]
-        base_charts = self._to_device(self.current["touch_charts"][:, :nf])
-        base_masks = self._to_device(self.current["touch_masks"][:, :nf])
-        kc = min(chunk, k)
-        scores = []
-        for n, start in enumerate(range(0, k, kc)):
-            cols = candidates[:, start : start + kc]
-            if cols.shape[1] < kc:
-                cols = np.concatenate([cols, np.repeat(cols[:, :1], kc - cols.shape[1], 1)], 1)
-            cand_charts = np.zeros((b, kc, nf, 25, 3), np.float32)
-            cand_masks = np.zeros((b, kc, nf, 25, 1), np.float32)
-            for j in range(kc):
-                keys = [(str(names[i]), int(cols[i, j])) for i in range(b)]
-                if any(kk not in self._sig_cache for kk in keys):
-                    self._simulate_and_cache(cols[:, j], keys)
-                for i in range(b):
-                    charts_i, codes_i, pos_i = self._sig_cache[keys[i]]
-                    for jf in range(nf):
-                        code = codes_i[jf]
-                        if code == 2:
-                            cand_charts[i, j, jf] = charts_i[jf]
-                        elif code == 1:
-                            cand_charts[i, j, jf] = pos_i[jf]
-                        cand_masks[i, j, jf] = code
-            scores.append(self._score_chunk(
-                self.current["img_device"], base_charts, base_masks,
-                self._to_device(cand_charts), self._to_device(cand_masks),
-                self.steps, self.current["gt_device"], None if draws is None else draws[n],
-            ))
-        return torch.cat(scores, dim=1).cpu().numpy()[:, :k]
+        with span("env.score_candidates"):
+            b, k = candidates.shape
+            nf = self.num_fingers
+            names = self.current["batch"]["names"]
+            base_charts = self._to_device(self.current["touch_charts"][:, :nf])
+            base_masks = self._to_device(self.current["touch_masks"][:, :nf])
+            kc = min(chunk, k)
+            scores = []
+            for n, start in enumerate(range(0, k, kc)):
+                with span("env.score_chunk"):
+                    cols = candidates[:, start : start + kc]
+                    if cols.shape[1] < kc:
+                        cols = np.concatenate([cols, np.repeat(cols[:, :1], kc - cols.shape[1], 1)], 1)
+                    cand_charts = np.zeros((b, kc, nf, 25, 3), np.float32)
+                    cand_masks = np.zeros((b, kc, nf, 25, 1), np.float32)
+                    for j in range(kc):
+                        keys = [(str(names[i]), int(cols[i, j])) for i in range(b)]
+                        self._ensure_signals(cols[:, j], keys)
+                        for i in range(b):
+                            charts_i, codes_i, pos_i = self._sig_cache[keys[i]]
+                            for jf in range(nf):
+                                code = codes_i[jf]
+                                if code == 2:
+                                    cand_charts[i, j, jf] = charts_i[jf]
+                                elif code == 1:
+                                    cand_charts[i, j, jf] = pos_i[jf]
+                                cand_masks[i, j, jf] = code
+                    scores.append(self._score_chunk(
+                        self.current["img_device"], base_charts, base_masks,
+                        self._to_device(cand_charts), self._to_device(cand_masks),
+                        self.steps, self.current["gt_device"], None if draws is None else draws[n],
+                    ))
+            return self._fetch(torch.cat(scores, dim=1))[:, :k]
 
     def best_action(self, greedy_checks: int | None = None) -> np.ndarray:
         """Myopic-oracle action selection without committing a step: score
@@ -302,8 +322,7 @@ class ActiveTouchEnv:
         actions = np.asarray(actions).reshape(-1)
         names = self.current["batch"]["names"]
         keys = [(str(names[i]), int(actions[i])) for i in range(b)]
-        if any(k not in self._sig_cache for k in keys):
-            self._simulate_and_cache(actions, keys)
+        self._ensure_signals(actions, keys)
         step = self.steps
         for i in range(b):
             charts_i, codes_i, pos_i = self._sig_cache[keys[i]]
@@ -337,8 +356,7 @@ class ActiveTouchEnv:
             arr = self._chart_cache[obj]
             if arr is None:
                 continue
-            if len(self._sig_cache) > self._sig_cache_cap:
-                self._sig_cache.clear()
+            self._bound_signal_cache()
             for a in range(min(arr.shape[0], self.config.num_actions)):
                 key = (p, a)
                 if key in self._sig_cache:
@@ -350,6 +368,20 @@ class ActiveTouchEnv:
                     slot[:, 0, :3],
                 )
 
+    def _ensure_signals(self, actions, keys) -> None:
+        """Simulate the grasps ``actions`` unless the signal cache holds
+        every one of ``keys``; counts the keys found and those missing."""
+        missing = sum(k not in self._sig_cache for k in keys)
+        count("env.signal_hits", len(keys) - missing)
+        if missing:
+            count("env.signal_misses", missing)
+            self._simulate_and_cache(actions, keys)
+
+    def _bound_signal_cache(self) -> None:
+        if len(self._sig_cache) > self._sig_cache_cap:
+            self._sig_cache.clear()
+            count("env.signal_cache_clears")
+
     def _simulate_and_cache(self, actions, keys) -> None:
         """Simulate the grasps ``actions`` and cache their signals."""
         b = self.config.env_batch_size
@@ -359,12 +391,11 @@ class ActiveTouchEnv:
         touch = signals["touch_signal"][:, fingers].reshape(b * nf, 121, 121, 3)
         pos = signals["finger_transform_pos"][:, fingers].reshape(b * nf, 3)
         rot = signals["finger_transform_rot_M"][:, fingers].reshape(b * nf, 3, 3)
-        charts = self._predict_touch(
+        charts = self._fetch(self._predict_touch(
             self._to_device(touch / 255.0), self._to_device(pos), self._to_device(rot)
-        ).cpu().numpy().reshape(b, nf, 25, 3)
+        )).reshape(b, nf, 25, 3)
         pos = pos.reshape(b, nf, 3)
-        if len(self._sig_cache) > self._sig_cache_cap:
-            self._sig_cache.clear()
+        self._bound_signal_cache()
         for i, key in enumerate(keys):
             codes = np.array(
                 [_CODE_OF[signals["touch_status"][i][f]] for f in fingers], np.int8
@@ -385,24 +416,26 @@ class ActiveTouchEnv:
 
     def compute_obs(self, actions=None) -> dict:
         if actions is not None:
-            self._apply_signals(np.asarray(actions))
-        return self._finalize_obs(self._dispatch_obs())
+            with span("env.apply_signals"):
+                self._apply_signals(np.asarray(actions))
+        with span("env.obs"):
+            return self._finalize_obs(self._dispatch_obs())
 
     def _finalize_obs(self, outputs) -> dict:
         verts, mask, score, latent = outputs
-        score = score.cpu().numpy()
+        score = self._fetch(score)
         if self.current["first_score"] is None:
             self.current["first_score"] = score.copy()
             if self.use_latent:
-                self.current["first_latent"] = latent.cpu().numpy()
+                self.current["first_latent"] = self._fetch(latent)
         obs = {
             "score": score.copy(),
             "first_score": self.current["first_score"].copy(),
             "mask": self.current["mask"].copy(),
             "names": self.current["batch"]["names"],
-            "mesh": torch.cat([verts, mask], dim=-1).cpu().numpy(),
+            "mesh": self._fetch(torch.cat([verts, mask], dim=-1)),
         }
         if self.use_latent:
-            obs["latent"] = latent.cpu().numpy()
+            obs["latent"] = self._fetch(latent)
             obs["first_latent"] = self.current["first_latent"].copy()
         return obs

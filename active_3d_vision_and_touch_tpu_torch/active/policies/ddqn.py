@@ -10,6 +10,11 @@ purpose: γ = 0 by default, 300 replay slots.
 
 The ε draw comes from a ``numpy`` generator the engine owns, seeded from
 ``config.seed``; the JAX package draws it from numpy's global state.
+
+Spans (``utils/profiler.py``, recorded under a profiler): ``ddqn.act``,
+``ddqn.update`` over the replay's ``replay.sample``, ``ddqn.update_on`` and
+``ddqn.fetch`` (the loss to the host), ``ddqn.target_sync`` and
+``ddqn.save``; the replay's ``replay.push``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from active_3d_vision_and_touch_tpu_torch.models.policy_nets import (
 )
 from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.train.common import CheckpointManager
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import span
 
 
 def _default_dims(use_latent: bool, use_img: bool, finger: bool) -> tuple[int, int]:
@@ -103,17 +109,18 @@ class DDQNEngine(PolicyEngine):
     def save(self) -> None:
         """The online and target nets, the optimizer and the counters, and
         the replay buffer beside them."""
-        self.ckpt.save(
-            {
-                "model": self.model.state_dict(),
-                "target_model": self.target_model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-            },
-            "recent",
-            meta={"epsilon": self.epsilon, "total_steps": self.total_steps,
-                  "episodes": self.episodes},
-        )
-        self.replay.save(self.config.checkpoint_dir)
+        with span("ddqn.save"):
+            self.ckpt.save(
+                {
+                    "model": self.model.state_dict(),
+                    "target_model": self.target_model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                },
+                "recent",
+                meta={"epsilon": self.epsilon, "total_steps": self.total_steps,
+                      "episodes": self.episodes},
+            )
+            self.replay.save(self.config.checkpoint_dir)
 
     # --------------------------------------------------------------- actor
     def _inputs(self, data: dict, next_step: bool = False) -> list[torch.Tensor]:
@@ -138,39 +145,43 @@ class DDQNEngine(PolicyEngine):
     def update_on(self, batch: dict) -> torch.Tensor:
         """One optimizer step on a replay batch; returns the loss (on the
         device)."""
-        c = self.config
-        dev = self.device
-        rewards = torch.as_tensor(batch["rewards"], device=dev)
-        if c.normalization == "first":
-            rewards = rewards / torch.as_tensor(batch["first_score"], device=dev)
-        elif c.normalization == "current":
-            rewards = rewards / torch.as_tensor(batch["score"], device=dev)
-        mask = torch.as_tensor(batch["mask"], device=dev)
-        mask_n = torch.as_tensor(batch["mask_n"], device=dev)
-        actions = torch.as_tensor(batch["actions"], device=dev).long()
-        with torch.no_grad():
-            next_args = self._inputs(batch, next_step=True)
-            # the online net's argmax over the actions not yet performed
-            # after this one (the next mask; the reference penalizes with
-            # the current one), valued by the target net
-            next_online = self.model(*next_args).masked_fill(mask_n > 0, -1e10)
-            best_next = next_online.argmax(dim=1, keepdim=True)
-            q_next = self.target_model(*next_args).gather(1, best_next)[:, 0]
-            not_done = mask.sum(dim=1) < c.budget - 1
-            target = c.gamma * torch.where(not_done, q_next, 0.0) + rewards
-        q = self.model(*self._inputs(batch)).gather(1, actions[:, None])[:, 0]
-        loss = ((q - target) ** 2).mean()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        torch.nn.utils.clip_grad_value_(self.model.parameters(), 1.0)
-        self.optimizer.step()
-        return loss.detach()
+        with span("ddqn.update_on"):
+            c = self.config
+            dev = self.device
+            rewards = torch.as_tensor(batch["rewards"], device=dev)
+            if c.normalization == "first":
+                rewards = rewards / torch.as_tensor(batch["first_score"], device=dev)
+            elif c.normalization == "current":
+                rewards = rewards / torch.as_tensor(batch["score"], device=dev)
+            mask = torch.as_tensor(batch["mask"], device=dev)
+            mask_n = torch.as_tensor(batch["mask_n"], device=dev)
+            actions = torch.as_tensor(batch["actions"], device=dev).long()
+            with torch.no_grad():
+                next_args = self._inputs(batch, next_step=True)
+                # the online net's argmax over the actions not yet performed
+                # after this one (the next mask; the reference penalizes with
+                # the current one), valued by the target net
+                next_online = self.model(*next_args).masked_fill(mask_n > 0, -1e10)
+                best_next = next_online.argmax(dim=1, keepdim=True)
+                q_next = self.target_model(*next_args).gather(1, best_next)[:, 0]
+                not_done = mask.sum(dim=1) < c.budget - 1
+                target = c.gamma * torch.where(not_done, q_next, 0.0) + rewards
+            q = self.model(*self._inputs(batch)).gather(1, actions[:, None])[:, 0]
+            loss = ((q - target) ** 2).mean()
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.nn.utils.clip_grad_value_(self.model.parameters(), 1.0)
+            self.optimizer.step()
+            return loss.detach()
 
     def update_parameters(self) -> float | None:
-        batch = self.replay.sample()
-        if batch is None:
-            return None
-        return float(self.update_on(batch))
+        with span("ddqn.update"):
+            batch = self.replay.sample()
+            if batch is None:
+                return None
+            loss = self.update_on(batch)
+            with span("ddqn.fetch"):
+                return float(loss)
 
     # ---------------------------------------------------------------- loop
     def train_epoch(self, max_batches: int | None = None) -> dict:
@@ -182,7 +193,8 @@ class DDQNEngine(PolicyEngine):
             obs = self.env.reset(batch)
             for _ in range(c.budget):
                 burn_in = self.total_steps < c.burn_in
-                actions = self.get_action(obs, force_random=burn_in)
+                with span("ddqn.act"):
+                    actions = self.get_action(obs, force_random=burn_in)
                 next_obs, reward, done = self.env.step(actions)
                 self.replay.push(actions, obs, next_obs, reward)
                 loss = self.update_parameters()
@@ -194,7 +206,8 @@ class DDQNEngine(PolicyEngine):
                 if not burn_in:
                     self.epsilon = max(c.epsilon_end, self.epsilon * c.epsilon_decay)
                 if self.total_steps % c.target_update == 0:
-                    self.target_model.load_state_dict(self.model.state_dict())
+                    with span("ddqn.target_sync"):
+                        self.target_model.load_state_dict(self.model.state_dict())
             self.episodes += 1
         self.save()
         return {

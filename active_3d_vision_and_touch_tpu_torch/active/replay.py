@@ -4,7 +4,9 @@ The port's own copy of the JAX package's ``active/replay.py``: a numpy ring
 buffer with the reference's fields (``policies/replay.py:16-144``): masks
 before and after, action, reward, scores, and the mesh (verts | mask code)
 or latent observations where asked for; an atomic save and load into
-``replay_buffer.npz``.  Sizes derive from the chart atlas.
+``replay_buffer.npz``.  Sizes derive from the chart atlas.  Spans
+(``utils/profiler.py``, recorded under a profiler): ``replay.push``,
+``replay.sample``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import span
 
 
 class ReplayMemory:
@@ -50,24 +54,25 @@ class ReplayMemory:
 
     def push(self, actions, obs: dict, next_obs: dict, rewards) -> None:
         """One transition per element of the env batch."""
-        for i in range(len(actions)):
-            p = self.position
-            self.data["actions"][p] = actions[i]
-            self.data["rewards"][p] = rewards[i]
-            self.data["score"][p] = obs["score"][i]
-            self.data["score_n"][p] = next_obs["score"][i]
-            self.data["first_score"][p] = obs["first_score"][i]
-            self.data["mask"][p] = obs["mask"][i]
-            self.data["mask_n"][p] = next_obs["mask"][i]
-            if "mesh" in self.data:
-                self.data["mesh"][p] = obs["mesh"][i]
-                self.data["mesh_n"][p] = next_obs["mesh"][i]
-            if "latent" in self.data:
-                self.data["latent"][p] = obs["latent"][i]
-                self.data["latent_n"][p] = next_obs["latent"][i]
-                self.data["first_latent"][p] = obs["first_latent"][i]
-            self.count_seen += 1
-            self.position = (self.position + 1) % self.capacity
+        with span("replay.push"):
+            for i in range(len(actions)):
+                p = self.position
+                self.data["actions"][p] = actions[i]
+                self.data["rewards"][p] = rewards[i]
+                self.data["score"][p] = obs["score"][i]
+                self.data["score_n"][p] = next_obs["score"][i]
+                self.data["first_score"][p] = obs["first_score"][i]
+                self.data["mask"][p] = obs["mask"][i]
+                self.data["mask_n"][p] = next_obs["mask"][i]
+                if "mesh" in self.data:
+                    self.data["mesh"][p] = obs["mesh"][i]
+                    self.data["mesh_n"][p] = next_obs["mesh"][i]
+                if "latent" in self.data:
+                    self.data["latent"][p] = obs["latent"][i]
+                    self.data["latent_n"][p] = next_obs["latent"][i]
+                    self.data["first_latent"][p] = obs["first_latent"][i]
+                self.count_seen += 1
+                self.position = (self.position + 1) % self.capacity
 
     def sample(self) -> dict | None:
         """A batch of distinct transitions (with repetition only where the
@@ -75,9 +80,10 @@ class ReplayMemory:
         ``max(burn_in, batch_size)`` transitions were seen."""
         if self.count_seen < max(self.burn_in, self.batch_size):
             return None
-        n = min(self.count_seen, self.capacity)
-        idx = self.rng.choice(n, self.batch_size, replace=n < self.batch_size)
-        return {k: v[idx] for k, v in self.data.items()}
+        with span("replay.sample"):
+            n = min(self.count_seen, self.capacity)
+            idx = self.rng.choice(n, self.batch_size, replace=n < self.batch_size)
+            return {k: v[idx] for k, v in self.data.items()}
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)

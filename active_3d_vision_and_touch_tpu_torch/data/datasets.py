@@ -22,6 +22,8 @@ from glob import glob
 
 import numpy as np
 
+from active_3d_vision_and_touch_tpu_torch.utils import profiler
+
 
 def object_dirs(root: str) -> dict:
     """The dataset's per-kind directories under ``root``."""
@@ -305,7 +307,9 @@ class Loader:
     """Minimal prefetching batch loader over a dataset with ``collate``.
 
     One thread assembles batches (items read by a small thread pool) ahead
-    of the consumer.  An error in a worker is raised to the consumer.
+    of the consumer.  An error in a worker is raised to the consumer.  The
+    consumer's wait for a batch is the span ``loader.wait``; a wait that
+    found the queue empty counts ``loader.starved``.
 
     ``process_shard=(index, count)`` shards the data over ranks: every rank
     draws the same seeded global order and keeps ``order[index::count]``,
@@ -386,7 +390,10 @@ class Loader:
         t.start()
         try:
             while True:
-                item = q.get()
+                if q.empty():
+                    profiler.count("loader.starved")
+                with profiler.span("loader.wait"):
+                    item = q.get()
                 if item is stop:
                     break
                 if isinstance(item, Exception):

@@ -17,6 +17,10 @@ Signal dict keys (shapes for batch size B, 4 fingers, res 121):
 - ``finger_transform_rot_M``: (B, 4, 3, 3) float32 sensor→world rotations
 - ``touch_point_cloud``: list[B] of list[4] (Ni, 3) arrays (on request)
 - ``vision`` / ``vision_occluded``: list[B] (256, 256, 3) uint8 (on request)
+
+Spans (``utils/profiler.py``, recorded under a profiler, on the calling
+thread around the pool's work): ``sim.load_objects``, ``sim.sample``.
+Counters: ``sim.objects_loaded``, ``sim.grasps``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 from active_3d_vision_and_touch_tpu_torch.core.config import SimConfig
 from active_3d_vision_and_touch_tpu_torch.core.mesh import load_obj
 from active_3d_vision_and_touch_tpu_torch.sim.scene import Scene
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, span
 
 
 class Sampler:
@@ -55,7 +60,6 @@ class Sampler:
         ``<prefix>_verts.npy`` / ``<prefix>_faces.npy`` (from_dataset=True,
         the dataset layout), ``.obj`` paths, or (verts, faces) tuples."""
         assert len(batch) == self.bs
-        self.remove_objects()
 
         def load(args):
             scene, spec = args
@@ -69,7 +73,10 @@ class Sampler:
                 verts, faces = mesh.verts, mesh.faces
             scene.load_obj(verts, faces)
 
-        self._map(load, zip(self.scenes, batch))
+        with span("sim.load_objects"):
+            self.remove_objects()
+            self._map(load, zip(self.scenes, batch))
+        count("sim.objects_loaded", self.bs)
 
     def remove_objects(self) -> None:
         for scene in self.scenes:
@@ -86,55 +93,57 @@ class Sampler:
         vision_occluded: bool = False,
     ) -> dict:
         actions = np.asarray(actions).reshape(self.bs)
-        res = self.config.touch_resolution
-        signals: dict = {}
+        count("sim.grasps", self.bs)
+        with span("sim.sample"):
+            res = self.config.touch_resolution
+            signals: dict = {}
 
-        def run_grasp(args):
-            scene, action = args
-            return scene.grasp(int(action))
+            def run_grasp(args):
+                scene, action = args
+                return scene.grasp(int(action))
 
-        success = self._map(run_grasp, zip(self.scenes, actions))
-        signals["grasp_success"] = success
-        signals["hand_pose"] = [
-            s.get_hand_pose() if ok else None for s, ok in zip(self.scenes, success)
-        ]
+            success = self._map(run_grasp, zip(self.scenes, actions))
+            signals["grasp_success"] = success
+            signals["hand_pose"] = [
+                s.get_hand_pose() if ok else None for s, ok in zip(self.scenes, success)
+            ]
 
-        if touch:
-            status = [["no_intersection"] * 4 for _ in range(self.bs)]
-            touch_signal = np.zeros((self.bs, 4, res, res, 3), np.float32)
-            depths = np.zeros((self.bs, 4, res, res), np.float32)
-            pos = np.zeros((self.bs, 4, 3), np.float32)
-            rot = np.zeros((self.bs, 4, 3, 3), np.float32)
-            clouds = [[np.zeros((0, 3), np.float32)] * 4 for _ in range(self.bs)]
+            if touch:
+                status = [["no_intersection"] * 4 for _ in range(self.bs)]
+                touch_signal = np.zeros((self.bs, 4, res, res, 3), np.float32)
+                depths = np.zeros((self.bs, 4, res, res), np.float32)
+                pos = np.zeros((self.bs, 4, 3), np.float32)
+                rot = np.zeros((self.bs, 4, 3, 3), np.float32)
+                clouds = [[np.zeros((0, 3), np.float32)] * 4 for _ in range(self.bs)]
 
-            def sense(i):
-                if not success[i]:
-                    return
-                scene = self.scenes[i]
-                status[i] = scene.render_depth()
-                touch_signal[i] = scene.render_touch()
-                depths[i] = scene.depths
-                frame = scene.get_finger_frame()
-                pos[i] = frame["pos"]
-                rot[i] = frame["rot"]
+                def sense(i):
+                    if not success[i]:
+                        return
+                    scene = self.scenes[i]
+                    status[i] = scene.render_depth()
+                    touch_signal[i] = scene.render_touch()
+                    depths[i] = scene.depths
+                    frame = scene.get_finger_frame()
+                    pos[i] = frame["pos"]
+                    rot[i] = frame["rot"]
+                    if touch_point_cloud:
+                        clouds[i] = scene.depth_to_points()
+
+                self._map(sense, range(self.bs))
+                signals["touch_status"] = status
+                signals["touch_signal"] = touch_signal
+                signals["depths"] = depths
+                signals["finger_transform_pos"] = pos
+                signals["finger_transform_rot_M"] = rot
                 if touch_point_cloud:
-                    clouds[i] = scene.depth_to_points()
+                    signals["touch_point_cloud"] = clouds
 
-            self._map(sense, range(self.bs))
-            signals["touch_status"] = status
-            signals["touch_signal"] = touch_signal
-            signals["depths"] = depths
-            signals["finger_transform_pos"] = pos
-            signals["finger_transform_rot_M"] = rot
-            if touch_point_cloud:
-                signals["touch_point_cloud"] = clouds
-
-        if vision_occluded:
-            signals["vision_occluded"] = self._map(
-                lambda s: s.scene_render(occluded=True), self.scenes
-            )
-        if vision:
-            signals["vision"] = self._map(
-                lambda s: s.scene_render(occluded=False), self.scenes
-            )
-        return signals
+            if vision_occluded:
+                signals["vision_occluded"] = self._map(
+                    lambda s: s.scene_render(occluded=True), self.scenes
+                )
+            if vision:
+                signals["vision"] = self._map(
+                    lambda s: s.scene_render(occluded=False), self.scenes
+                )
+            return signals

@@ -18,6 +18,11 @@ as their global mean.  Every rank draws the same weights from the config's
 seed and takes rank 0's at ``build`` (after a checkpoint is restored);
 rank 0 alone writes the config, the metrics and the checkpoints, with a
 barrier before the others read them.
+
+Spans (``utils/profiler.py``, recorded under a profiler): ``recon.to_device``,
+``recon.train_step`` over ``recon.optimizer`` (``zero_grad``, then
+``step``), ``recon.forward_loss`` and ``recon.backward`` (with the
+gradients' exchange across ranks), and ``recon.eval_step``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from active_3d_vision_and_touch_tpu_torch.train.common import (
     EarlyStop,
     MetricsWriter,
 )
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import span
 
 
 def resolve_device(device) -> torch.device:
@@ -101,21 +107,27 @@ class ReconEngine:
         returns the loss (on the device; across ranks the global batch's).
         ``draws`` (see :func:`ops.sample.draw_sample_noise`) replaces the
         sampler's draw from ``generator``."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(batch, generator, draws)
-        loss.backward()
-        if self.group is not None:
-            average_gradients(self.model, self.group)
-            loss = global_mean(loss, self.group)
-        self.optimizer.step()
-        return loss.detach()
+        with span("recon.train_step"):
+            self.model.train()
+            with span("recon.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            with span("recon.forward_loss"):
+                loss = self._loss(batch, generator, draws)
+            with span("recon.backward"):
+                loss.backward()
+                if self.group is not None:
+                    average_gradients(self.model, self.group)
+                    loss = global_mean(loss, self.group)
+            with span("recon.optimizer"):
+                self.optimizer.step()
+            return loss.detach()
 
     def eval_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
-        self.model.eval()
-        with torch.no_grad():
-            loss = self._loss(batch, generator, draws)
-            return loss if self.group is None else global_mean(loss, self.group)
+        with span("recon.eval_step"):
+            self.model.eval()
+            with torch.no_grad():
+                loss = self._loss(batch, generator, draws)
+                return loss if self.group is None else global_mean(loss, self.group)
 
     def barrier(self) -> None:
         """Wait for every rank (a no-op without a process group)."""
@@ -137,11 +149,12 @@ class ReconEngine:
     def to_device(self, batch: dict) -> dict:
         """Host or device arrays → float32 tensors on the engine's device;
         metadata (``names``) stays behind."""
-        return {
-            k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-            for k, v in batch.items()
-            if k != "names"
-        }
+        with span("recon.to_device"):
+            return {
+                k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                for k, v in batch.items()
+                if k != "names"
+            }
 
     def build(self) -> None:
         """Resume from the ``recent`` checkpoint if there is one."""

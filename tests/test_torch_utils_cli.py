@@ -170,19 +170,32 @@ def test_step_timer_matches_jax(monkeypatch):
 
 def test_trace_is_a_noop_without_a_directory_and_writes_one_with(tmp_path, monkeypatch):
     """Without a directory or ``A3VT_PROFILE_DIR`` nothing is traced or
-    written; with either, a Chrome trace of the block lands in
-    ``<dir>/<name>/trace.json``."""
+    written, and the program's spans record nothing; with either, a Chrome
+    trace of the block, its program spans included, lands in
+    ``<dir>/<name>/trace.json``, and the recorder's snapshot, spans and
+    counters, beside it in ``snapshot.json``."""
     monkeypatch.delenv(profiler.PROFILE_ENV, raising=False)
     monkeypatch.chdir(tmp_path)
-    with profiler.trace("off") as prof:
+    profiler.reset()
+    with profiler.trace("off") as prof, profiler.span("test.off"):
         torch.ones(3).sum()
     assert prof is None and os.listdir(tmp_path) == []
-    with profiler.trace("by_arg", str(tmp_path / "traces")) as prof:
+    assert profiler.records() == []
+    with profiler.trace("by_arg", str(tmp_path / "traces")) as prof, profiler.span("test.block"):
         torch.ones(64, 64) @ torch.ones(64, 64)
+        profiler.count("test.counter", 3)
     assert prof is not None
     with open(tmp_path / "traces" / "by_arg" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+    assert [e["ph"] for e in events if e.get("name") == "test.block"] == ["X"]
+    assert [r.name for r in profiler.records()] == ["test.block"]
+    with open(tmp_path / "traces" / "by_arg" / "snapshot.json") as f:
+        written = json.load(f)
+    assert written["spans"]["test.block"]["count"] == 1
+    assert written["counters"] == {"test.counter": 3}
+    assert set(written["launches"]) == {"nn_exact", "segsum_sorted", "nn_cluster", "select_chunks"}
+    profiler.reset()
     monkeypatch.setenv(profiler.PROFILE_ENV, str(tmp_path / "env"))
     with profiler.trace("by_env"):
         torch.ones(3).sum()
