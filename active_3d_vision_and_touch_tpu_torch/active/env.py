@@ -12,19 +12,23 @@ Touch signals come from a per-(object, action) cache, filled from the
 dataset's precomputed chart cache (``chart_cache_root``) or from the host
 simulator: the env's own :class:`sim.sampler.Sampler` unless the caller
 passes a ``sampler`` (any object with ``load_objects``, ``sample`` and
-``disconnect``).  ``reset`` loads the episode's objects into it; a pair the
-chart cache lacks is grasped live at its first use.
+``disconnect``).  A pair the chart cache lacks is grasped live at its
+first use, and the episode's first such miss loads the episode's objects
+into the simulator: where the chart cache answers every grasp, no mesh is
+loaded.
 
 Vertex mask codes: 0 failed grasp, 1 grasp without touch (chart collapsed
 to the sensor's position), 2 successful touch, 3 vision chart.
 
 Spans (``utils/profiler.py``, recorded under a profiler): ``env.reset`` over
-the simulator's ``sim.load_objects``, ``env.prime_cache`` and ``env.obs``;
-``env.step`` over ``env.apply_signals`` and ``env.obs``;
-``env.score_candidates`` over one ``env.score_chunk`` a chunk; ``env.fetch``
-around each copy from the card to the host.  Counters: ``env.signal_hits``
-and ``env.signal_misses`` (a grasp's signals found in the cache or
-simulated), ``env.signal_cache_clears``.
+``env.prime_cache`` and ``env.obs``; ``env.step`` over ``env.apply_signals``
+and ``env.obs``; ``env.score_candidates`` over one ``env.score_chunk`` a
+chunk; the simulator's ``sim.load_objects`` under the ``env.apply_signals``
+or ``env.score_chunk`` of the episode's first miss; ``env.fetch`` around
+each copy from the card to the host.  Counters: ``env.resets``;
+``env.signal_hits`` and ``env.signal_misses`` (a grasp's signals found in
+the cache or simulated), ``env.signal_cache_clears``; ``env.sim_loads``
+(the episodes whose objects the simulator loaded).
 """
 
 from __future__ import annotations
@@ -113,6 +117,10 @@ class ActiveTouchEnv:
         # the same frozen touch model over the same grasps), per object
         self._chart_cache_root = chart_cache_root
         self._chart_cache: dict = {}
+        # the names the last reset was given, and whether the simulator
+        # holds their objects: loaded at the episode's first miss
+        self._episode_names: list | None = None
+        self._sim_loaded = False
 
     # ------------------------------------------------------------ device
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -183,9 +191,12 @@ class ActiveTouchEnv:
     # ----------------------------------------------------------- episode
     def reset(self, batch: dict) -> dict:
         """Start an episode on a new batch of objects (dict with ``names``
-        path prefixes, ``gt_points`` and optionally ``img``)."""
+        path prefixes, ``gt_points`` and optionally ``img``).  The
+        simulator does not load the objects here: the episode's first
+        grasp that the signal cache lacks loads the names given now."""
         c = self.config
         with span("env.reset"):
+            count("env.resets")
             self.steps = 0
             self.current = {
                 "batch": batch,
@@ -197,7 +208,8 @@ class ActiveTouchEnv:
                 "gt_device": self._to_device(batch["gt_points"]),
                 "img_device": self._to_device(batch["img"]) if c.use_img else None,
             }
-            self.sampler.load_objects(batch["names"], from_dataset=True)
+            self._episode_names = list(batch["names"])
+            self._sim_loaded = False
             if self._chart_cache_root is not None:
                 with span("env.prime_cache"):
                     self._prime_signal_cache(batch["names"])
@@ -308,11 +320,13 @@ class ActiveTouchEnv:
     def reset_sampler(self) -> None:
         """Tear down and rebuild the host simulator's scenes and thread pool
         (the reference's pybullet memory-leak workaround,
-        ``environment.py:367-373``); the next ``reset`` reloads objects."""
+        ``environment.py:367-373``); the next miss loads the episode's
+        objects into the new one."""
         self.sampler.disconnect()
         self.sampler = Sampler(
             bs=self.config.env_batch_size, vision=False, config=SimConfig()
         )
+        self._sim_loaded = False
 
     # ------------------------------------------------------------- signals
     def _apply_signals(self, actions) -> None:
@@ -383,8 +397,13 @@ class ActiveTouchEnv:
             count("env.signal_cache_clears")
 
     def _simulate_and_cache(self, actions, keys) -> None:
-        """Simulate the grasps ``actions`` and cache their signals."""
+        """Simulate the grasps ``actions`` and cache their signals, the
+        episode's objects loaded into the simulator first if it lacks them."""
         b = self.config.env_batch_size
+        if self._episode_names is not None and not self._sim_loaded:
+            self.sampler.load_objects(self._episode_names, from_dataset=True)
+            self._sim_loaded = True
+            count("env.sim_loads")
         signals = self.sampler.sample(actions, touch=True)
         fingers = [1] if self.config.finger else list(range(4))
         nf = len(fingers)

@@ -1070,8 +1070,9 @@ def write_active_world(root: Path, cfg: PolicyConfig, dev: torch.device) -> None
     names = [f"object_{i:03d}" for i in range(2 * b)]
     write_objects(root, names[:b], cfg, dev, seed=0)
     write_objects(root, names[b:], cfg, dev, seed=1)
-    # each object's mesh, which the env's simulator loads at reset; the
-    # chart cache answers every signal, so no grasp is simulated
+    # each object's mesh, which the env's simulator would load at a grasp
+    # the chart cache lacks; the cache answers every signal, so no mesh is
+    # loaded and no grasp is simulated
     for i, name in enumerate(names):
         mesh = random_object(i)
         np.save(Path(object_dirs(str(root))["object_info"]) / f"{name}_verts.npy", mesh.verts)
@@ -1695,7 +1696,8 @@ def phase_env_live(dev: torch.device, root: Path, touch_engine: TouchEngine) -> 
     check(all(np.isfinite(x).all() for x in scores), "non-finite score on the live env path")
     keys = [(str(n), a) for n in batch["names"] for a in range(cfg.num_actions)]
     check(all(k in env._sig_cache for k in keys), "the first greedy step did not grasp every pair")
-    print(f"  [env live] reset {reset_ms:.3f} ms, of which load_objects {sum(loads.ms):.3f} ms "
+    check(len(loads.ms) == 1, f"the live episode loaded its objects {len(loads.ms)} times, not once")
+    print(f"  [env live] reset {reset_ms:.3f} ms; load_objects at the first miss {sum(loads.ms):.3f} ms "
           f"({b} objects); greedy step ms {[round(t, 3) for t in step_ms]}")
     for i, ms in enumerate(step_ms):
         s0, m0, p0, c0, o0 = marks[i]

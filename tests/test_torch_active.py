@@ -40,6 +40,7 @@ from active_3d_vision_and_touch_tpu.train.vision import (
     build_deformation as jax_build_deformation,
 )
 from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
+from active_3d_vision_and_touch_tpu_torch.active import env as env_module
 from active_3d_vision_and_touch_tpu_torch.active.policies import dataset_specific, nearest, simple
 from active_3d_vision_and_touch_tpu_torch.active.policies.base import PolicyEngine
 from active_3d_vision_and_touch_tpu_torch.active.policies.rollout import RolloutResult
@@ -56,9 +57,11 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
 )
 from active_3d_vision_and_touch_tpu_torch.data import object_dirs, random_object
 from active_3d_vision_and_touch_tpu_torch.models import MeshAutoEncoder, TouchChartEncoder
+from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.ops.sample import draw_sample_noise
 from active_3d_vision_and_touch_tpu_torch.sim import Sampler
 from active_3d_vision_and_touch_tpu_torch.train.vision import build_deformation
+from active_3d_vision_and_touch_tpu_torch.utils import profiler
 from test_torch_autoencoder import _jax_sample, _sampler_inputs, random_variables
 
 B, ACTIONS, POINTS = 2, 4, 128
@@ -88,7 +91,8 @@ def _write_world(root, rng):
     four fingers hold the codes 0, 1, 2, 2 in a drawn order (a code-1 slot
     is collapsed onto its finger's position, as the touch-chart stage
     stores it), and each object's mesh, a procedural object, which the
-    env's default simulator loads at ``reset``."""
+    env's default simulator loads at an episode's first grasp that the
+    chart cache lacks."""
     dirs = object_dirs(root)
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
@@ -228,13 +232,14 @@ def test_env_reconstruction_and_scores_match_jax(world, tmp_path):
 
 class _FakeSimulator:
     """A simulator's interface with seeded signals: gel images, fingertip
-    poses, and statuses covering all three codes."""
+    poses, and statuses covering all three codes; ``loads`` holds the names
+    of each ``load_objects`` call."""
 
     def __init__(self, b):
-        self.b, self.calls = b, 0
+        self.b, self.calls, self.loads = b, 0, []
 
     def load_objects(self, names, from_dataset=True):
-        self.names = list(names)
+        self.loads.append(list(names))
 
     def sample(self, actions, touch=True):
         rng = np.random.default_rng(int(np.sum(actions)) + 7 * self.calls)
@@ -292,6 +297,103 @@ def test_env_signals_from_a_simulator_match_jax(world, tmp_path):
         np.testing.assert_array_equal(pos_t, pos_j)
     assert (codes_t == 2).any()
     for e in (bare, jbare):
+        e.sampler.disconnect()
+
+
+@pytest.mark.parametrize("drive", ["greedy", "steps"])
+@pytest.mark.parametrize("cached", [True, False], ids=["chart_cache", "live"])
+def test_env_loads_the_episode_objects_at_its_first_miss_only(world, tmp_path, cached, drive):
+    """``reset`` loads nothing into the simulator.  Where the chart cache
+    answers every grasp, an episode of two greedy steps or two committed
+    steps loads nothing and grasps nothing; without it, the first step's
+    miss loads the names given to ``reset``, once, and the later misses of
+    the episode (the greedy step's other chunks, the second step's grasps)
+    load nothing more.  The counters say the same."""
+    cfg = PolicyConfig(**dict(SMALL, use_latent=False), experiments_root=str(tmp_path))
+    sim = _FakeSimulator(B)
+    env = ActiveTouchEnv(cfg, sampler=sim, chart_cache_root=world if cached else None, device="cpu")
+    batch = _batch(world, NAMES[:2])
+    names = list(batch["names"])
+    profiler.reset()
+    env.reset(batch)
+    assert sim.loads == []
+    loads = [] if cached else [names]
+    for actions in ([0, 1], [2, 3]):
+        if drive == "greedy":
+            env.best_step()
+        else:
+            env.step(np.array(actions))
+        assert sim.loads == loads
+    assert sim.calls == (0 if cached else ACTIONS if drive == "greedy" else 2)
+    counters = profiler.snapshot()["counters"]
+    assert counters["env.resets"] == 1
+    assert counters.get("env.sim_loads", 0) == len(loads)
+    assert counters.get("env.signal_misses", 0) == B * sim.calls
+    profiler.reset()
+
+
+def test_env_loads_each_episode_into_the_simulator_it_has(world, tmp_path, monkeypatch):
+    """A new ``reset`` followed by a miss loads the new episode's names, as
+    ``reset`` was given them (a later edit of the batch's list changes
+    nothing); after ``reset_sampler`` the next miss loads them into the
+    new simulator, and the old one sees no further call."""
+    cfg = PolicyConfig(**dict(SMALL, use_latent=False), experiments_root=str(tmp_path))
+    first, second = _FakeSimulator(B), _FakeSimulator(B)
+    monkeypatch.setattr(env_module, "Sampler", lambda **kw: second)
+    env = ActiveTouchEnv(cfg, sampler=first, device="cpu")
+    episodes = [_batch(world, NAMES[:2]), _batch(world, NAMES[2:4])]
+    names = [list(b["names"]) for b in episodes]
+    env.reset(episodes[0])
+    env.step(np.array([0, 1]))
+    env.reset(episodes[1])
+    episodes[1]["names"][0] = "elsewhere/unknown_object"
+    env.step(np.array([0, 1]))
+    assert first.loads == names and first.calls == 2
+    env.reset_sampler()
+    assert env.sampler is second and second.loads == []
+    env.step(np.array([2, 3]))
+    assert second.loads == [names[1]] and second.calls == 1
+    assert first.loads == names and first.calls == 2
+
+
+class _EagerEnv(ActiveTouchEnv):
+    """The env as it loaded the simulator before: every episode's objects at
+    ``reset``."""
+
+    def reset(self, batch):
+        self.sampler.load_objects(batch["names"], from_dataset=True)
+        obs = super().reset(batch)
+        self._sim_loaded = True
+        return obs
+
+
+def test_env_signals_of_a_lazily_loaded_simulator_equal_an_eager_load(world, tmp_path):
+    """On the default simulator and no chart cache, an episode whose
+    objects load at its first miss grasps what an episode that loaded them
+    at ``reset`` grasps: its cached signals, committed charts and scores
+    equal, bit for bit."""
+    cfg = PolicyConfig(**dict(SMALL, use_latent=False), experiments_root=str(tmp_path))
+    touch = init_modules_(TouchChartEncoder(), torch.Generator().manual_seed(3))
+    deform = build_deformation(cfg, "cpu")
+    envs = [cls(cfg, touch, deform, device="cpu") for cls in (ActiveTouchEnv, _EagerEnv)]
+    obs = []
+    for e in envs:
+        assert isinstance(e.sampler, Sampler)
+        o = [e.reset(_batch(world, NAMES[:2]))]
+        for actions in ([0, 1], [3, 2]):
+            o.append(e.step(np.array(actions))[0])
+        obs.append(o)
+    lazy, eager = envs
+    assert set(lazy._sig_cache) == set(eager._sig_cache) and len(lazy._sig_cache) == 2 * B
+    for key in eager._sig_cache:
+        for got, want in zip(lazy._sig_cache[key], eager._sig_cache[key]):
+            np.testing.assert_array_equal(got, want)
+    assert any((codes == 2).any() for _, codes, _ in eager._sig_cache.values())
+    for name in ("touch_charts", "touch_masks"):
+        np.testing.assert_array_equal(lazy.current[name], eager.current[name])
+    for got, want in zip(*obs):
+        np.testing.assert_array_equal(got["score"], want["score"])
+    for e in envs:
         e.sampler.disconnect()
 
 

@@ -5,7 +5,8 @@ emit, on the CPU at tiny sizes.
 A span records, and enters ``torch.profiler.record_function``, only under
 an active profiler; counters count always.  The layers are driven on a
 world written here from numpy (4 objects, a chart cache that answers every
-grasp, each object's mesh for the env's default simulator to load)."""
+grasp, each object's mesh for the env's default simulator, which loads
+none of them while the chart cache answers)."""
 
 import os
 import sys
@@ -209,18 +210,21 @@ def _first_batch(world):
 
 
 def test_env_reset_splits_into_its_parts_and_the_chart_cache_answers_every_grasp(world, tmp_path):
-    """``reset`` emits ``sim.load_objects``, ``env.prime_cache`` and
-    ``env.obs`` under ``env.reset``; a greedy step scores its chunks under
-    ``env.score_candidates``, finds every grasp's signals in the cache (no
-    miss, so the simulator grasps nothing) and fetches under ``env.fetch``."""
+    """``reset`` emits ``env.prime_cache`` and ``env.obs`` under
+    ``env.reset``, and no ``sim.load_objects``: the simulator loads an
+    episode's objects at its first miss only.  A greedy step scores its
+    chunks under ``env.score_candidates``, finds every grasp's signals in
+    the cache (no miss, so the simulator loads and grasps nothing) and
+    fetches under ``env.fetch``."""
     env = _env(world, tmp_path)
     batch = _first_batch(world)
     with cpu_profile():
         env.reset(batch)
         env.best_step()
     got = by_name(profiler.records())
-    for name in ("sim.load_objects", "env.prime_cache", "env.obs"):
+    for name in ("env.prime_cache", "env.obs"):
         assert got[name][0].parent == "env.reset", name
+    assert "sim.load_objects" not in got
     assert [r.parent for r in got["env.score_chunk"]] == ["env.score_candidates"]
     assert {r.parent for r in got["env.apply_signals"]} == {"env.step"}
     assert {r.parent for r in got["env.obs"]} == {"env.reset", "env.step"}
@@ -230,7 +234,9 @@ def test_env_reset_splits_into_its_parts_and_the_chart_cache_answers_every_grasp
     assert counters["env.signal_hits"] == B * ACTIONS + B
     assert counters.get("env.signal_misses", 0) == 0
     assert counters.get("sim.grasps", 0) == 0
-    assert counters["sim.objects_loaded"] == B
+    assert counters.get("sim.objects_loaded", 0) == 0
+    assert counters.get("env.sim_loads", 0) == 0
+    assert counters["env.resets"] == 1
 
 
 def test_ddqn_train_epoch_emits_its_update_push_and_save(world, tmp_path, monkeypatch):
