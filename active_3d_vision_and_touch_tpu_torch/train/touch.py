@@ -6,6 +6,13 @@ Port of the JAX package's ``train/touch.py``.  Batches: ``sim_touch``
 Loss: loss_coeff * mean over the batch of the 3-repeat Chamfer distance
 between the predicted chart mesh, sampled at ``num_samples`` points, and
 ``samples``.
+
+Spans (``utils/profiler.py``, recorded under a profiler): ``touch.encode``,
+the encoder's forward with the rigid transform, in ``_loss`` (so under
+``recon.forward_loss`` or ``recon.eval_step``) and in ``predict``;
+``touch.chamfer``, the chart sampler and the 3-repeat Chamfer, under
+``recon.forward_loss`` (or ``recon.eval_step``).  Counter ``touch.charts``:
+the rows predicted, on every forward (training, evaluation, ``predict``).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from active_3d_vision_and_touch_tpu_torch.models.touch import TouchChartEncoder
 from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
 from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, span
 
 
 class TouchEngine(ReconEngine):
@@ -36,24 +44,29 @@ class TouchEngine(ReconEngine):
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=config.lr)
         super().__init__(config, device=device, log=log)
 
+    def _encode(self, sim_touch, ref_pos, ref_rot) -> torch.Tensor:
+        """(B, 25, 3) charts in the fingertip frames."""
+        count("touch.charts", sim_touch.shape[0])
+        with span("touch.encode"):
+            return self.model(sim_touch, ref_pos, ref_rot, self.chart_verts)
+
     def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
-        verts = self.model(
-            batch["sim_touch"], batch["ref_pos"], batch["ref_rot"], self.chart_verts
-        )
-        cd = mesh_chamfer_distance(
-            verts,
-            self.chart_faces,
-            batch["samples"],
-            generator,
-            num=self.config.num_samples,
-            nn=self.config.loss_nn,
-            draws=draws,
-            shard=self.shard,
-        )
+        verts = self._encode(batch["sim_touch"], batch["ref_pos"], batch["ref_rot"])
+        with span("touch.chamfer"):
+            cd = mesh_chamfer_distance(
+                verts,
+                self.chart_faces,
+                batch["samples"],
+                generator,
+                num=self.config.num_samples,
+                nn=self.config.loss_nn,
+                draws=draws,
+                shard=self.shard,
+            )
         return self.config.loss_coeff * cd.mean()
 
     def predict(self, sim_touch, ref_pos, ref_rot) -> torch.Tensor:
         """Frozen inference, as the active environment uses it."""
         self.model.eval()
         with torch.no_grad():
-            return self.model(sim_touch, ref_pos, ref_rot, self.chart_verts)
+            return self._encode(sim_touch, ref_pos, ref_rot)

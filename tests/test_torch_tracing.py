@@ -20,11 +20,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
 from active_3d_vision_and_touch_tpu_torch.active.policies.ddqn import DDQNEngine
-from active_3d_vision_and_touch_tpu_torch.core.config import PolicyConfig
+from active_3d_vision_and_touch_tpu_torch.core.config import PolicyConfig, TouchConfig
 from active_3d_vision_and_touch_tpu_torch.data import object_dirs, random_object
 from active_3d_vision_and_touch_tpu_torch.data.datasets import ActiveDataset, Loader
 from active_3d_vision_and_touch_tpu_torch.models import MeshAutoEncoder
 from active_3d_vision_and_touch_tpu_torch.ops import NN_EXACT
+from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.utils import profiler
 
 B, ACTIONS, POINTS = 2, 4, 128
@@ -282,3 +283,32 @@ def test_loader_emits_its_waits_and_counts_an_empty_queue():
     assert len(waits) == len(batches) + 1  # the last get takes the end marker
     assert min(r.end_ns - r.start_ns for r in waits[:1]) >= 0.05e9  # the first waits for two reads
     assert profiler.snapshot()["counters"]["loader.starved"] >= 1
+
+
+def test_touch_engine_emits_encode_and_chamfer_and_counts_its_charts(tmp_path):
+    """``touch.encode`` (the encoder and the rigid transform) and
+    ``touch.chamfer`` (the sampler and the Chamfer distance) under
+    ``recon.forward_loss`` in training and ``recon.eval_step`` in
+    evaluation, ``touch.encode`` alone in ``predict``; ``touch.charts``
+    adds each forward's rows, with a profiler or without."""
+    rows, g = 3, np.random.default_rng(4)
+    engine = TouchEngine(TouchConfig(batch_size=rows, num_samples=64, experiments_root=str(tmp_path), eval=True),
+                         device="cpu", log=False)
+    batch = engine.to_device({
+        "sim_touch": g.uniform(size=(rows, 121, 121, 3)),
+        "ref_pos": g.normal(size=(rows, 3)) * 0.1,
+        "ref_rot": np.linalg.qr(g.normal(size=(rows, 3, 3)))[0],
+        "samples": g.normal(size=(rows, 100, 3)) * 0.01,
+    })
+    gen = engine.step_generator(0)
+    with cpu_profile():
+        engine.train_step(batch, gen)
+        engine.eval_step(batch, gen)
+        engine.predict(batch["sim_touch"], batch["ref_pos"], batch["ref_rot"])
+    got = by_name(profiler.records())
+    assert [r.parent for r in got["touch.encode"]] == ["recon.forward_loss", "recon.eval_step", None]
+    assert [r.parent for r in got["touch.chamfer"]] == ["recon.forward_loss", "recon.eval_step"]
+    assert profiler.snapshot()["counters"]["touch.charts"] == 3 * rows
+    engine.predict(batch["sim_touch"][:2], batch["ref_pos"][:2], batch["ref_rot"][:2])
+    assert profiler.snapshot()["counters"]["touch.charts"] == 3 * rows + 2
+    assert len(profiler.records()) == sum(map(len, got.values()))  # no span without a profiler
