@@ -175,13 +175,16 @@ def chamfer_distance_sharded(
     return dx.mean(dim=1) + dy_sum / (y.shape[1] * dist.get_world_size(group))
 
 
+REPEAT = 3  # samplings of each mesh that the training loss averages
+
+
 def mesh_chamfer_distance(
     verts: torch.Tensor,
     faces: torch.Tensor,
     gt_points: torch.Tensor,
     generator: torch.Generator | None = None,
     num: int = 1000,
-    repeat: int = 3,
+    repeat: int = REPEAT,
     nn: str = "exact",
     draws: tuple | None = None,
     shard: tuple[int, int] | None = None,

@@ -19,16 +19,45 @@ seed and takes rank 0's at ``build`` (after a checkpoint is restored);
 rank 0 alone writes the config, the metrics and the checkpoints, with a
 barrier before the others read them.
 
+One CUDA graph a step.  On a CUDA device with no process group,
+``train_step`` captures the whole optimizer step (forward and loss,
+backward, Adam's step) in a ``torch.cuda.CUDAGraph`` and replays it, so the
+host queues one replay a step instead of several hundred launches.  The
+rule is :func:`graph_key`: a step replays the graph captured for steps of
+its key (the batch's keys, shapes and dtypes and the sampler's draws'
+shapes).  The first ``WARMUP_STEPS`` steps of a key run eagerly on a side
+stream, as whole-network capture requires (cuDNN and cuBLAS settle their
+workspaces there); the next is captured, then replayed, so it trains too.
+The first warm-up step runs in torch's sync debug mode: a step that
+synchronises the host with the card (a copy from pageable host memory,
+which a capture refuses) is never captured and runs eagerly.  A step of
+another key, ``load_state_dict`` and a restoring ``build`` drop the graph.
+The sampler's draws are the graph's inputs, copied in with the batch: drawn
+from the step's generator where none are given, as the sampler draws them,
+so a replayed step uses the numbers of the eager step it replaces.  Adam
+turns ``capturable`` at the capture, which moves its step counts onto the
+card (:func:`capturable_`), and back at ``load_state_dict``: a step that
+no graph holds runs the plain Adam.  The CPU and the ranks run every step
+eagerly.
+
 Spans (``utils/profiler.py``, recorded under a profiler): ``recon.to_device``,
 ``recon.train_step`` over ``recon.optimizer`` (``zero_grad``, then
 ``step``), ``recon.forward_loss`` and ``recon.backward`` (with the
-gradients' exchange across ranks), and ``recon.eval_step``.
+gradients' exchange across ranks) in an eager step, ``recon.replay`` in a
+replayed one, and ``recon.eval_step``.  Counters: ``recon.eager_steps``,
+``recon.graph_captures`` and ``recon.graph_replays``, one of them a train
+step.  A replay adds the counters its capture counted
+(``profiler.recount``); ``CudaKernel.launches`` counts the capture's
+launches once, as the first replay runs them, and no later replay's (a
+device trace counts those).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -36,6 +65,8 @@ import torch.distributed as dist
 
 from active_3d_vision_and_touch_tpu_torch.core.config import save_config
 from active_3d_vision_and_touch_tpu_torch.models.vision import sync_batchnorm_
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer import REPEAT
+from active_3d_vision_and_touch_tpu_torch.ops.sample import draw_sample_noise
 from active_3d_vision_and_touch_tpu_torch.parallel import (
     average_gradients,
     global_mean,
@@ -46,7 +77,9 @@ from active_3d_vision_and_touch_tpu_torch.train.common import (
     EarlyStop,
     MetricsWriter,
 )
-from active_3d_vision_and_touch_tpu_torch.utils.profiler import span
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, counted, recount, span
+
+WARMUP_STEPS = 2  # eager steps of a key before its step is captured
 
 
 def resolve_device(device) -> torch.device:
@@ -67,6 +100,65 @@ def host_to_device(arr, device: torch.device) -> torch.Tensor:
     staged = torch.empty(np.shape(arr), dtype=torch.float32, pin_memory=True)
     staged.numpy()[...] = arr
     return staged.to(device, non_blocking=True)
+
+
+def capturable_(optimizer: torch.optim.Optimizer, on: bool) -> None:
+    """Turn Adam's ``capturable`` on (a CUDA graph can then hold its step:
+    step counts and bias corrections on the card) or off (the plain Adam,
+    step counts on the host), moving the step counts it has."""
+    for group in optimizer.param_groups:
+        group["capturable"] = on
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(p.device if on else "cpu")
+
+
+def graph_key(device: torch.device, group, batch: dict, draws) -> tuple | None:
+    """The rule by which a train step runs from a CUDA graph: on a CUDA
+    device with no process group, the key of the step, which is the batch's
+    keys, shapes and dtypes and the shapes of the sampler's ``draws``; a
+    step replays the graph captured for steps of its key.  ``None``
+    anywhere else (the CPU, across ranks): the step runs eagerly."""
+    if device.type != "cuda" or group is not None:
+        return None
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()),
+            tuple(tuple(d.shape) for d in draws))
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Yields a list that holds, at the block's end, the warnings of the
+    block's operations that synchronised the host with the card (torch's
+    sync debug mode: a copy from pageable memory, a read of a value).  The
+    block's other warnings are issued again."""
+    found: list = []
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    for w in caught:
+        if "synchronizing CUDA operation" in str(w.message):
+            found.append(w)
+        elif "Synchronization debug mode" not in str(w.message):  # the mode's own notice
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+
+
+class _StepGraph:
+    """The steps of one key: the warm-up steps run, whether the step can be
+    captured, and once it is, the graph with its static inputs, its loss
+    and what its capture counted."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.warm = 0
+        self.capturable = True
+        self.graph = None
+        self.batch = self.draws = self.loss = self.counts = None
 
 
 class ReconEngine:
@@ -97,30 +189,107 @@ class ReconEngine:
         if self.world > 1:
             sync_batchnorm_(self.model, self.group)
         self.built = False
+        self._graph: _StepGraph | None = None
+        self._stream = None  # the warm-up steps' side stream
 
     def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
         """The scalar training loss of ``batch`` (provided by subclasses)."""
         raise NotImplementedError
 
+    def sample_points(self) -> int:
+        """Points the loss samples from each mesh in one of its repeats."""
+        return self.config.number_points
+
     def train_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
         """One optimizer step on ``batch`` (this rank's rows, across ranks);
-        returns the loss (on the device; across ranks the global batch's).
-        ``draws`` (see :func:`ops.sample.draw_sample_noise`) replaces the
-        sampler's draw from ``generator``."""
+        returns the loss (on the device; across ranks the global batch's;
+        a copy of a replayed graph's).  ``draws`` (see
+        :func:`ops.sample.draw_sample_noise`) replaces the sampler's draw
+        from ``generator``."""
         with span("recon.train_step"):
             self.model.train()
-            with span("recon.optimizer"):
-                self.optimizer.zero_grad(set_to_none=True)
-            with span("recon.forward_loss"):
-                loss = self._loss(batch, generator, draws)
-            with span("recon.backward"):
+            if draws is None and self.device.type == "cuda" and self.group is None:
+                # a graph's inputs, drawn as the sampler would draw them
+                # (every batch array leads with its rows)
+                rows = next(iter(batch.values())).shape[0]
+                draws = draw_sample_noise(rows, REPEAT * self.sample_points(), generator, self.device)
+            key = graph_key(self.device, self.group, batch, draws)
+            if key is None:
+                count("recon.eager_steps")
+                return self._eager_step(batch, generator, draws)
+            if self._graph is None or self._graph.key != key:
+                self._graph = _StepGraph(key)  # another key: the old graph goes
+            graph = self._graph
+            if not graph.capturable:
+                count("recon.eager_steps")
+                return self._eager_step(batch, None, draws)
+            if graph.warm < WARMUP_STEPS:
+                count("recon.eager_steps")
+                graph.warm += 1
+                return self._warm_up(graph, batch, draws)
+            if graph.graph is None:
+                self._capture(graph, batch, draws)
+                count("recon.graph_captures")
+            else:
+                count("recon.graph_replays")
+            with span("recon.replay"):
+                for k, v in batch.items():
+                    graph.batch[k].copy_(v)
+                for static, d in zip(graph.draws, draws):
+                    static.copy_(d)
+                graph.graph.replay()
+                recount(graph.counts)
+                return graph.loss.clone()
+
+    def _eager_step(self, batch: dict, generator, draws) -> torch.Tensor:
+        with span("recon.optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+        with span("recon.forward_loss"):
+            loss = self._loss(batch, generator, draws)
+        with span("recon.backward"):
+            loss.backward()
+            if self.group is not None:
+                average_gradients(self.model, self.group)
+                loss = global_mean(loss, self.group)
+        with span("recon.optimizer"):
+            self.optimizer.step()
+        return loss.detach()
+
+    def _warm_up(self, graph: _StepGraph, batch: dict, draws) -> torch.Tensor:
+        """An eager step on the side stream; the key's first marks the key
+        uncapturable if it synchronised the host with the card."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            if graph.warm == 1:
+                with host_syncs() as syncs:
+                    loss = self._eager_step(batch, None, draws)
+                graph.capturable = not syncs
+            else:
+                loss = self._eager_step(batch, None, draws)
+        current.wait_stream(self._stream)
+        return loss
+
+    def _capture(self, graph: _StepGraph, batch: dict, draws) -> None:
+        """Capture the step on static copies of ``batch`` and ``draws``, with
+        Adam made capturable.  A capture runs nothing, so its counters are
+        taken back, and each replay adds them (the first replay runs this
+        step)."""
+        graph.batch = {k: v.clone() for k, v in batch.items()}
+        graph.draws = tuple(d.clone() for d in draws)
+        graph.graph = torch.cuda.CUDAGraph()
+        capturable_(self.optimizer, True)
+        # the backward writes the gradients afresh in the graph's own memory
+        self.optimizer.zero_grad(set_to_none=True)
+        with counted() as graph.counts:
+            with torch.cuda.graph(graph.graph):
+                loss = self._loss(graph.batch, None, graph.draws)
                 loss.backward()
-                if self.group is not None:
-                    average_gradients(self.model, self.group)
-                    loss = global_mean(loss, self.group)
-            with span("recon.optimizer"):
                 self.optimizer.step()
-            return loss.detach()
+        graph.loss = loss.detach()
+        recount(graph.counts, -1)
 
     def eval_step(self, batch: dict, generator=None, draws=None) -> torch.Tensor:
         with span("recon.eval_step"):
@@ -143,8 +312,13 @@ class ReconEngine:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load ``state``; a captured graph is dropped, so no replay runs
+        over the optimizer state it replaces, and Adam is the plain one
+        until the next capture."""
+        self._graph = None
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        capturable_(self.optimizer, False)
 
     def to_device(self, batch: dict) -> dict:
         """Host or device arrays → float32 tensors on the engine's device;

@@ -11,8 +11,10 @@ Spans (``utils/profiler.py``, recorded under a profiler): ``touch.encode``,
 the encoder's forward with the rigid transform, in ``_loss`` (so under
 ``recon.forward_loss`` or ``recon.eval_step``) and in ``predict``;
 ``touch.chamfer``, the chart sampler and the 3-repeat Chamfer, under
-``recon.forward_loss`` (or ``recon.eval_step``).  Counter ``touch.charts``:
-the rows predicted, on every forward (training, evaluation, ``predict``).
+``recon.forward_loss`` (or ``recon.eval_step``); neither runs in a step
+replayed from its CUDA graph (``train/base.py``).  Counter ``touch.charts``:
+the rows predicted, on every forward (training, evaluation, ``predict``,
+and each replay, which adds its capture's count).
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ class TouchEngine(ReconEngine):
         self.model = model.to(device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=config.lr)
         super().__init__(config, device=device, log=log)
+
+    def sample_points(self) -> int:
+        return self.config.num_samples
 
     def _encode(self, sim_touch, ref_pos, ref_rot) -> torch.Tensor:
         """(B, 25, 3) charts in the fingertip frames."""

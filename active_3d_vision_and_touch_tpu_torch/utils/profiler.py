@@ -16,7 +16,10 @@ in-memory record (name, parent, start, end, self time).  Without a
 profiler a span costs one flag check.  Counters are integer adds under a lock,
 always on.  :func:`snapshot` sums both, with the hand-written kernels'
 launch counts (``CudaKernel.launches``); :func:`trace` writes it beside
-its trace, and :func:`reset` clears both.
+its trace, and :func:`reset` clears both.  :func:`counted` and
+:func:`recount` carry a CUDA graph's counters from its capture to each of
+its replays; the launch counts are those of ``CudaKernel.launch`` alone,
+so a replay adds none (a device trace counts a replay's kernels).
 """
 
 from __future__ import annotations
@@ -157,6 +160,29 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (always on)."""
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def counted():
+    """Yields a dict that holds, at the block's end, what the block added
+    to the counters ({name: n}); for :func:`recount`."""
+    with _counters_lock:
+        before = dict(_counters)
+    added: dict = {}
+    yield added
+    with _counters_lock:
+        now = dict(_counters)
+    added.update({name: n - before.get(name, 0) for name, n in now.items()
+                  if n != before.get(name, 0)})
+
+
+def recount(added: dict, times: int = 1) -> None:
+    """Add to the counters what a block added (:func:`counted`) ``times``
+    over.  A CUDA graph's replay runs the work its capture counted without
+    running the Python that counts it; a capture runs nothing, so
+    ``times=-1`` takes its counts back."""
+    for name, n in added.items():
+        count(name, n * times)
 
 
 def records() -> list[SpanRecord]:

@@ -30,7 +30,9 @@ package, and runs these phases in order; any failure exits non-zero:
 4. the main paths at full width, each from random weights made from the
    seed, with every launch counter set to 0 just before and read just
    after, and each kernel required to have run exactly as often as the path
-   needs.  Four trainers take 1 warm-up and 3 train steps and 1 eval step:
+   needs (the trainers' launches read from a device trace of the path,
+   since a train step replayed from its CUDA graph runs its kernels without
+   calling ``CudaKernel.launch``).  Four trainers take 1 warm-up and 3 train steps and 1 eval step:
    ``VisionEngine`` on the v_t_g configuration (batch 16, 30k points,
    3-repeat Chamfer) with ``loss_nn="exact"``, the same with ``loss_nn``
    left at its default ``"clustered"``, ``TouchEngine`` on its default
@@ -189,6 +191,7 @@ from active_3d_vision_and_touch_tpu_torch.train.autoencoder import (
 )
 from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
+from active_3d_vision_and_touch_tpu_torch.utils import profiler as recorder
 from active_3d_vision_and_touch_tpu_torch.utils import viz
 
 ROOT = Path(__file__).resolve().parent
@@ -943,33 +946,58 @@ def count_from_zero() -> None:
         k.launches = 0
 
 
-def read_counts(label: str, expected: dict, held: int) -> dict:
-    launches = {k.name: k.launches for k in KERNELS}
+def read_counts(label: str, expected: dict, held: int, ran: dict | None = None) -> dict:
+    """Check the kernels' launches on the path against ``expected``: those
+    that ``ran`` on the card by a device trace (:func:`device_launches`),
+    else the launch counters."""
+    calls = {k.name: k.launches for k in KERNELS}
+    launches = calls if ran is None else ran
+    seen = "" if ran is None else f" (launch calls {calls})"
     print(f"  [{label}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-          f"({held / 2**30:.3f} GiB held before the path)  launches {launches}")
+          f"({held / 2**30:.3f} GiB held before the path)  launches {launches}{seen}")
     check(launches == expected, f"unexpected kernel launches on the {label} path: {launches}")
     return launches
 
 
+def device_launches(fn):
+    """``fn()``, and the hand-written kernels' launches that ran on the card
+    meanwhile by kernel, from a device trace: a train step replayed from its
+    CUDA graph runs its kernels without calling ``CudaKernel.launch``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, {k.name: sum(f"{k.name}_kernel" in n for n in names) for k in KERNELS}
+
+
 def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
-    """1 warm-up + 3 train steps + 1 eval step with the launch counters set
-    to 0 just before and read just after; returns the counts by kernel."""
+    """1 warm-up + 3 train steps + 1 eval step under a device trace, with
+    the launch counters set to 0 just before; returns the launches by
+    kernel that the trace holds."""
     held = torch.cuda.memory_allocated()
     count_from_zero()
-    losses, step_ms = [], []
-    for step in range(4):  # 1 warm-up + 3 measured
-        t0 = time.perf_counter()
-        losses.append(float(engine.train_step(batch, engine.step_generator(step))))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
-    eval_loss = float(engine.eval_step(batch, engine.step_generator(100)))
-    eval_ms = (time.perf_counter() - t0) * 1e3
+    recorder.reset()
 
+    def steps():
+        losses, step_ms = [], []
+        for step in range(4):  # 1 warm-up + 3 measured
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_step(batch, engine.step_generator(step))))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        eval_loss = float(engine.eval_step(batch, engine.step_generator(100)))
+        return losses, step_ms, eval_loss, (time.perf_counter() - t0) * 1e3
+
+    (losses, step_ms, eval_loss, eval_ms), ran = device_launches(steps)
     print(f"  [{label}] train losses {losses}  eval loss {eval_loss}")
     print(f"  [{label}] train step ms {[round(t, 3) for t in step_ms]}  median of 3 after warm-up "
-          f"{float(np.median(step_ms[1:])):.3f}  eval step ms {eval_ms:.3f}")
-    launches = read_counts(label, expected, held)
+          f"{float(np.median(step_ms[1:])):.3f}  eval step ms {eval_ms:.3f} (under a device trace)")
+    print(f"  [{label}] train steps {recorder.snapshot()['counters']}")
+    launches = read_counts(label, expected, held, ran)
     check(all(np.isfinite(losses + [eval_loss])), f"non-finite loss on the {label} path")
     return launches
 
@@ -1006,6 +1034,10 @@ def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
     batch = engine.to_device(touch_batch(cfg))
     launches["touch"] = run_path(
         engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4}, "touch")
+    # 2 eager warm-up steps, then a capture (which replays once), then a replay
+    graph = {k: recorder.snapshot()["counters"].get(k) for k in ("recon.graph_captures", "recon.graph_replays")}
+    check(graph == {"recon.graph_captures": 1, "recon.graph_replays": 1},
+          f"the touch path's steps no longer replay from a CUDA graph: {graph}")
     paths["touch"] = (engine, batch)
 
     # the autoencoder over a frozen v_t_g vision model of its own
@@ -1461,12 +1493,11 @@ def fit_epoch(engine, train, valid, label: str, expected: dict, steps: tuple) ->
     held = torch.cuda.memory_allocated()
     count_from_zero()
     t0 = time.perf_counter()
-    best = engine.fit(train, valid)
-    torch.cuda.synchronize()
+    best, ran = device_launches(lambda: engine.fit(train, valid))
     epoch_ms = (time.perf_counter() - t0) * 1e3
     print(f"  [{label}] one fit epoch of {steps[0]} train and {steps[1]} valid batches: "
-          f"{epoch_ms:.3f} ms, valid loss {best}")
-    launches = read_counts(label, expected, held)
+          f"{epoch_ms:.3f} ms under a device trace, valid loss {best}")
+    launches = read_counts(label, expected, held, ran)
     check(np.isfinite(best), f"{label}: non-finite validation loss")
     check(engine.ckpt.exists("best") and engine.ckpt.exists("recent"),
           f"{label}: no best or recent checkpoint")
