@@ -40,6 +40,7 @@ import torch
 
 from active_3d_vision_and_touch_tpu_torch.core import touch_chart
 from active_3d_vision_and_touch_tpu_torch.core.config import PolicyConfig, SimConfig
+from active_3d_vision_and_touch_tpu_torch.core.device import host_to_device, resolve_device
 from active_3d_vision_and_touch_tpu_torch.models.autoencoder import MeshAutoEncoder
 from active_3d_vision_and_touch_tpu_torch.models.touch import TouchChartEncoder
 from active_3d_vision_and_touch_tpu_torch.models.vision import (
@@ -49,7 +50,6 @@ from active_3d_vision_and_touch_tpu_torch.models.vision import (
 )
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
 from active_3d_vision_and_touch_tpu_torch.sim.sampler import Sampler
-from active_3d_vision_and_touch_tpu_torch.train.base import host_to_device, resolve_device
 from active_3d_vision_and_touch_tpu_torch.train.vision import (
     build_deformation,
     deformation_geometry,
@@ -57,6 +57,17 @@ from active_3d_vision_and_touch_tpu_torch.train.vision import (
 from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, span
 
 _CODE_OF = {"touch": 2, "no_touch": 1, "no_intersection": 0}
+
+
+def _write_signals(entry, charts: np.ndarray, masks: np.ndarray) -> None:
+    """Write a signal-cache entry (charts (nf, 25, 3), mask codes (nf,),
+    finger positions (nf, 3)) into a chart slot (nf, 25, 3) and a mask slot
+    (nf, 25, 1): code 2 takes its chart, code 1 the finger's position at
+    every vertex, code 0 zeros."""
+    entry_charts, codes, pos = entry
+    for f, code in enumerate(codes):
+        charts[f] = entry_charts[f] if code == 2 else pos[f] if code == 1 else 0
+        masks[f] = code
 
 
 class ActiveTouchEnv:
@@ -262,14 +273,7 @@ class ActiveTouchEnv:
                         keys = [(str(names[i]), int(cols[i, j])) for i in range(b)]
                         self._ensure_signals(cols[:, j], keys)
                         for i in range(b):
-                            charts_i, codes_i, pos_i = self._sig_cache[keys[i]]
-                            for jf in range(nf):
-                                code = codes_i[jf]
-                                if code == 2:
-                                    cand_charts[i, j, jf] = charts_i[jf]
-                                elif code == 1:
-                                    cand_charts[i, j, jf] = pos_i[jf]
-                                cand_masks[i, j, jf] = code
+                            _write_signals(self._sig_cache[keys[i]], cand_charts[i, j], cand_masks[i, j])
                     scores.append(self._score_chunk(
                         self.current["img_device"], base_charts, base_masks,
                         self._to_device(cand_charts), self._to_device(cand_masks),
@@ -337,18 +341,9 @@ class ActiveTouchEnv:
         names = self.current["batch"]["names"]
         keys = [(str(names[i]), int(actions[i])) for i in range(b)]
         self._ensure_signals(actions, keys)
-        step = self.steps
         for i in range(b):
-            charts_i, codes_i, pos_i = self._sig_cache[keys[i]]
-            for jf in range(charts_i.shape[0]):
-                code = codes_i[jf]
-                if code == 2:
-                    self.current["touch_charts"][i, jf, step] = charts_i[jf]
-                elif code == 1:
-                    self.current["touch_charts"][i, jf, step] = pos_i[jf]
-                else:
-                    self.current["touch_charts"][i, jf, step] = 0
-                self.current["touch_masks"][i, jf, step] = code
+            _write_signals(self._sig_cache[keys[i]], self.current["touch_charts"][i, :, self.steps],
+                           self.current["touch_masks"][i, :, self.steps])
 
     def _prime_signal_cache(self, names) -> None:
         """Fill the signal cache for every action of the episode's objects

@@ -18,11 +18,11 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
     load_config,
     save_config,
 )
+from active_3d_vision_and_touch_tpu_torch.core.device import resolve_device
 from active_3d_vision_and_touch_tpu_torch.data.datasets import ActiveDataset, Loader
 from active_3d_vision_and_touch_tpu_torch.models.touch import TouchChartEncoder
 from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.train.autoencoder import build_autoencoder
-from active_3d_vision_and_touch_tpu_torch.train.base import resolve_device
 from active_3d_vision_and_touch_tpu_torch.train.common import CheckpointManager
 from active_3d_vision_and_touch_tpu_torch.train.vision import build_deformation
 from active_3d_vision_and_touch_tpu_torch.utils.viz import visualize_actions

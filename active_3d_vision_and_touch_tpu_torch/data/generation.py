@@ -32,12 +32,12 @@ from pathlib import Path
 import numpy as np
 from scipy import ndimage
 
+from active_3d_vision_and_touch_tpu_torch.core.device import host_to_device
 from active_3d_vision_and_touch_tpu_torch.core.mesh import load_obj, save_obj, scale_points
 from active_3d_vision_and_touch_tpu_torch.data.datasets import object_dirs
 from active_3d_vision_and_touch_tpu_torch.data.primitives import random_object
 from active_3d_vision_and_touch_tpu_torch.sim.collision import subdivide_to_density
 from active_3d_vision_and_touch_tpu_torch.sim.sampler import Sampler
-from active_3d_vision_and_touch_tpu_torch.train.base import host_to_device
 
 SPLIT_NAMES = ("recon_train", "auto_train", "RL_train", "valid", "test")
 

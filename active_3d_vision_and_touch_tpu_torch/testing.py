@@ -1,8 +1,8 @@
 """Seeded test cases for the hand-written kernels, as numpy arrays.
 
-One source of cases for three readers: the CPU tests that hold the kernels'
-plain versions against the JAX package, the ``cuda``-marked tests that hold
-the kernels against their plain versions, and ``chip_smoke.py``.  The cases
+One source of cases for two readers: the CPU tests that hold the kernels'
+plain versions against the JAX package, and the ``cuda``-marked tests that
+hold the kernels against their plain versions.  The cases
 sit where the kernels' designs are at risk.  The segment sum hands a run of
 up to 8 entries to one thread and a longer one to a warp, and cuts a row
 into slabs of 1024 entries: runs of 8 and 9 entries and of a warp's width,
@@ -21,7 +21,11 @@ ties: every chunk a candidate, more chunks asked for than there are, equal
 bounds, equal scores, a tile in two distant regions, and queries that are
 NaN.  The sampler's backward sums runs of sorted face ids: one face taking
 every sample, faces without samples, only the first and the last face, one
-sample.  This module imports numpy only.
+sample.  Beside them, :func:`surface_clouds` makes the surface-like clouds
+that the clustered search is built for, and :func:`clustered_clouds` and
+:func:`clustered_searches` the search's inputs at the train step's and a
+shard's shapes, on a device.  This module imports numpy only; those
+functions import torch and the port when called.
 """
 
 from __future__ import annotations
@@ -342,3 +346,99 @@ def interpolate_backward_float64(case: dict) -> np.ndarray:
             np.add.at(out[row], faces[idx[row], k],
                       w[row, :, k, None].astype(np.float64) * g[row].astype(np.float64))
     return out
+
+
+def surface_clouds(b: int, n: int, g, device):
+    """(b, n, 3) surface-like clouds made on ``device`` from the
+    ``torch.Generator`` ``g``: area-weighted samples of the vision atlas (a
+    sphere of radius 0.25), scaled per axis by 0.6-1.4 and bent by a
+    low-frequency displacement.  The pruned search is built for surfaces;
+    a Gaussian volume is none."""
+    import torch
+
+    from active_3d_vision_and_touch_tpu_torch.core import vision_charts
+    from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample
+
+    atlas = vision_charts()
+    verts = torch.as_tensor(atlas.verts, device=device)[None].expand(b, -1, -1)
+    verts = verts * (0.6 + 0.8 * torch.rand(b, 1, 3, device=device, generator=g))
+    phase = 6.28 * torch.rand(b, 1, 3, device=device, generator=g)
+    verts = verts + 0.03 * torch.sin(9.0 * verts.roll(1, dims=-1) + phase)
+    faces = torch.as_tensor(atlas.faces, device=device).long()
+    return batch_sample(verts, faces, n, generator=g)
+
+
+# the clustered search's defaults (``chamfer_clustered_tiled_gt``'s
+# chunk_size and chunks_per_tile)
+CHUNK, CHUNKS_PER_TILE = 128, 24
+# Least share of queries whose clustered neighbour is the exact one, at the
+# train step's shapes, in either direction.  An H100 showed 0.9765
+# (predictions -> gt) and 0.9273 (gt -> predictions) on such clouds, so a
+# fall below 0.90 is a change in the code
+MIN_AGREEMENT = 0.90
+
+
+def vtg_mesh(device):
+    """The initial v_t_g mesh as the vision step fuses it: the atlas's
+    vertices and its touch slots' 500 at 0, (1, V, 3), and its faces."""
+    import torch
+
+    from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, vision_charts
+
+    atlas = vision_charts()
+    verts = torch.cat([torch.as_tensor(atlas.verts, device=device)[None],
+                       torch.zeros(1, 500, 3, device=device)], 1)
+    return verts, torch.as_tensor(build_adj_info(atlas).faces, device=device).long()
+
+
+def folded_samples(verts, faces, n: int, g):
+    """3 x ``n`` area-weighted samples of each mesh of ``verts`` (meshes, V,
+    3), drawn from ``g``, folded onto the batch as the Chamfer loss folds its
+    repeats: (3 x meshes, n, 3)."""
+    import torch
+
+    from active_3d_vision_and_touch_tpu_torch.ops.chamfer import REPEAT
+    from active_3d_vision_and_touch_tpu_torch.ops.sample import batch_sample
+
+    pts = batch_sample(verts, faces, REPEAT * n, generator=g)
+    return torch.cat(torch.split(pts, n, dim=1), 0).contiguous()
+
+
+def clustered_clouds(g, device, n: int = 30000) -> dict:
+    """The clustered search's clouds, drawn from ``g`` on ``device``: at the
+    train step, ``preds`` (48 folded sample clouds of 16 initial v_t_g
+    meshes) and ``surface`` (16 surface-like gt clouds); for one of 4
+    shards, ``shard_x`` (48 surface-like clouds) and ``shard_y`` (a quarter
+    of 48 others)."""
+    verts, faces = vtg_mesh(device)
+    return {
+        "preds": folded_samples(verts.expand(16, -1, -1), faces, n, g),
+        "surface": surface_clouds(16, n, g, device),
+        "shard_x": surface_clouds(48, n, g, device),
+        "shard_y": surface_clouds(48, n, g, device)[:, : n // 4].contiguous(),
+    }
+
+
+def sorted_padded(points, pad: int):
+    """``points`` in Morton order, edge-padded to a multiple of ``pad``, as
+    the clustered loss lays them out."""
+    from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
+
+    return cluster._edge_pad_points(cluster._sort_by_morton(points)[0], pad).contiguous()
+
+
+def clustered_searches(clouds: dict) -> dict:
+    """Both directions of the train step's and a shard's clustered search on
+    :func:`clustered_clouds`, sorted and padded as the loss does: name ->
+    (queries, refs, the refs tiled to the queries' rows)."""
+    from active_3d_vision_and_touch_tpu_torch.ops.chamfer import REPEAT
+
+    xs, ys1 = sorted_padded(clouds["preds"], 256), sorted_padded(clouds["surface"], 256)
+    ys = ys1.repeat(REPEAT, 1, 1)
+    x_refs, y_refs = (sorted_padded(clouds[k], CHUNK) for k in ("shard_x", "shard_y"))
+    return {
+        "train step x->y": (xs, ys1, ys),
+        "train step y->x": (ys, xs, xs),
+        "shard x->y": (sorted_padded(clouds["shard_x"], 256), y_refs, y_refs),
+        "shard y->x": (sorted_padded(clouds["shard_y"], 256), x_refs, x_refs),
+    }

@@ -26,10 +26,11 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
     VisionConfig,
     load_config,
 )
+from active_3d_vision_and_touch_tpu_torch.core.device import resolve_device
 from active_3d_vision_and_touch_tpu_torch.models.autoencoder import MeshAutoEncoder
 from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
-from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
+from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
 from active_3d_vision_and_touch_tpu_torch.utils.viz import write_png
 

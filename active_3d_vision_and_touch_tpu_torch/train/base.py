@@ -64,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from active_3d_vision_and_touch_tpu_torch.core.config import save_config
+from active_3d_vision_and_touch_tpu_torch.core.device import resolve_device
 from active_3d_vision_and_touch_tpu_torch.models.vision import sync_batchnorm_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import REPEAT
 from active_3d_vision_and_touch_tpu_torch.ops.sample import draw_sample_noise
@@ -80,26 +81,6 @@ from active_3d_vision_and_touch_tpu_torch.train.common import (
 from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, counted, recount, span
 
 WARMUP_STEPS = 2  # eager steps of a key before its step is captured
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises for CUDA on a machine
-    without it, rather than running somewhere else."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    return device
-
-
-def host_to_device(arr, device: torch.device) -> torch.Tensor:
-    """A float32 copy of the numpy ``arr`` on ``device``.  To the card it is
-    copied once into pinned memory and sent from there without waiting, so
-    the host's next work overlaps the card's."""
-    if device.type != "cuda":
-        return torch.tensor(arr, dtype=torch.float32)
-    staged = torch.empty(np.shape(arr), dtype=torch.float32, pin_memory=True)
-    staged.numpy()[...] = arr
-    return staged.to(device, non_blocking=True)
 
 
 def capturable_(optimizer: torch.optim.Optimizer, on: bool) -> None:

@@ -23,10 +23,11 @@ import torch
 
 from active_3d_vision_and_touch_tpu_torch.core import touch_chart
 from active_3d_vision_and_touch_tpu_torch.core.config import TouchConfig
+from active_3d_vision_and_touch_tpu_torch.core.device import resolve_device
 from active_3d_vision_and_touch_tpu_torch.models.touch import TouchChartEncoder
 from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
-from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
+from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine
 from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, span
 
 

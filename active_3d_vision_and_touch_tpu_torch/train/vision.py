@@ -14,13 +14,14 @@ import torch
 
 from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, vision_charts
 from active_3d_vision_and_touch_tpu_torch.core.config import VisionConfig
+from active_3d_vision_and_touch_tpu_torch.core.device import resolve_device
 from active_3d_vision_and_touch_tpu_torch.models.vision import (
     Deformation,
     init_modules_,
     prepare_charts,
 )
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
-from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine, resolve_device
+from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine
 from active_3d_vision_and_touch_tpu_torch.utils.viz import visualize_prediction
 
 

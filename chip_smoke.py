@@ -1,109 +1,71 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+"""Build and time the port's hand-written CUDA kernels on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
 from the root of a checkout.  It imports nothing of JAX or of the JAX
-package, and runs these phases in order; any failure exits non-zero:
+package.  It holds each kernel to its plain version at every shape it times,
+and ends by running the port's checks on the card, which hold the kernels on
+their seeded cases and the paths, the policies, the command line and the
+multi-rank layer; they also run alone:
 
-1. environment: torch/CUDA versions, the card's name and power limit, and
-   the TF32 settings, set explicitly;
-2. build: every hand-written kernel from ``csrc/``, one ``nvcc`` each, all
-   started together; no register spills; the instruction mix of the exact
-   nearest-neighbour kernel's scan loop as built (``cuobjdump -sass``);
-3. kernels against their plain PyTorch versions on the card, at test shapes
-   (the seeded cases of the package's ``testing`` module: tile edges, placed
-   ties, run shapes, chunk sizes, table rows, selections with ties and NaNs)
-   and at the shapes the train step gives them, each with its stated
-   tolerance; the segment sum twice on one input, bit-equal; the clustered
-   search against the exact one, its oracle; then CUDA-event timings (median
-   of repeated launches) of each kernel, its plain version and, where one
-   exists, a single PyTorch call computing the same function, and of the
-   clustered search's prep; the segment sum must be no slower than
-   ``scatter_add_`` by the device's time (replays of a CUDA graph of 20
-   launches) and the chunk selection no slower than its torch-op version;
-   the segment sum on the sampler backward's streams (the vision step's,
-   the touch step's, and one face taking every sample); the exact search
-   and the segment sum at the autoencoder's and the environment's shapes,
-   the exact search also at the supervised probes' chunk and at one
-   observation of the policies;
-4. the main paths at full width, each from random weights made from the
-   seed, with every launch counter set to 0 just before and read just
-   after, and each kernel required to have run exactly as often as the path
-   needs (the trainers' launches read from a device trace of the path,
-   since a train step replayed from its CUDA graph runs its kernels without
-   calling ``CudaKernel.launch``).  Four trainers take 1 warm-up and 3 train steps and 1 eval step:
-   ``VisionEngine`` on the v_t_g configuration (batch 16, 30k points,
-   3-repeat Chamfer) with ``loss_nn="exact"``, the same with ``loss_nn``
-   left at its default ``"clustered"``, ``TouchEngine`` on its default
-   configuration (batch 64, 121x121 images, 4000 samples), and
-   ``AutoencoderEngine`` on its default configuration (batch 16, a 20 x 300
-   GCN, a 200-wide latent, 6400 decoded points) over a frozen v_t_g
-   ``VisionEngine``.  ``ActiveTouchEnv`` on the default policy
-   configuration with the latent observation (3 objects, 50 grasps, budget
-   5, 30k points) reads a chart cache written from the seed, and runs a
-   greedy episode (every grasp scored each step), an even rollout and a
-   nearest-neighbour rollout through the policy engines; then one chunk of
-   candidate scores through the kernels and through the plain versions.
-   The learned policies at the default policy configuration on that env:
-   DDQN over the latent and over the mesh (one training epoch of two env
-   batches, updates from the 7th step, one evaluation batch; one update on
-   the card against the same on the CPU; the checkpoint restored) and the
-   supervised policy (its nets of steps 0 and 1 at 5 probes, one
-   evaluation batch).  One ``fit`` epoch each of ``VisionEngine`` and
-   ``TouchEngine`` at their default configurations from loaders over the
-   JAX package's on-disk dataset layout, written from the seed.  The
-   port's ``generate_dataset`` of 8 procedural objects (50 grasps, 30k
-   points) and ``make_touch_charts`` over ``TouchEngine(TouchConfig())``
-   (no hand-written kernel launched), the layout and the charts' mask codes
-   checked against the files, and K3 against K1 on the generated clouds;
-   the environment on that world with its default simulator and no chart
-   cache, a greedy episode whose first step grasps every pair live,
-   launching K1 as the same episode on the chart cache does, with live and
-   cached signals compared; the simulator's own times, and its native
-   rasterizer against the numpy one.  Then the multi-rank layer in a
-   process group of one rank on NCCL (a ``FileStore`` under
-   ``build/chip_smoke/``): ``chamfer_distance_sharded``, exact and
-   clustered, at (48, 30000)x30000 against the unsharded Chamfer (exact to
-   rtol 1e-6, clustered never below exact); the same cloud cut into 4
-   shards run one after the other through ``chamfer_shard_terms`` and
-   combined by MIN and SUM (K1 at (48, 30000)x7500 and (48, 7500)x30000,
-   K3 on 7500-point shards, each checked against its plain version and
-   timed); one ``VisionEngine(VisionConfig())`` train step under the group
-   against the same step without one, on the same weights and draws, with
-   the BatchNorms on their running statistics and in train mode;
-5. the outputs: the full-width losses with the kernels against the same
-   step on the plain versions (the sampler's backward included) for the
-   exact vision step and the autoencoder step, the sampler's backward alone
-   at the step's shapes, the clustered Chamfer on the kernels against the
-   same on the plain versions and against the exact loss, and small
-   configurations on the card against the same ones on the CPU;
-6. a profile of one train step of each trainer, of one greedy selection
-   of the environment and of one DDQN training episode, beside the same work without the
-   profiler: device time by kernel, the host's time in the launch calls and
-   the time it waits for the card; no outer-dimension scan (a ``cumsum``
-   over the sample axis, which the sampler's backward has no need of) may
-   be among them;
-7. the command line (``python -m active_3d_vision_and_touch_tpu_torch.cli``)
-   in subprocesses on the generated world: ``train-touch``,
-   ``make-touch-charts``, ``train-vision``, ``train-auto`` (one epoch each,
-   batches cut to what 8 objects' splits hold) and ``policy even
-   --visualize``, each to exit 0; ``VisionEngine.evaluate_detailed`` with
-   ``visualize_dir`` on the trained checkpoint; every PNG checked for its
-   signature and its size; ``bench`` in full;
-8. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+    python -m pytest tests/test_torch_kernels.py tests/test_torch_step_graph.py \\
+        tests/test_torch_card.py -q -m cuda --noconftest
+
+A failed check is printed as ``FAILED: ...`` and the run goes on; the script
+exits with 1 if any check failed.  It prints, in order:
+
+1. the environment: the python, torch and CUDA versions, the card's name
+   and power limit, and the TF32 settings, set explicitly;
+2. the build: every kernel from ``csrc/``, built afresh (its library is
+   removed first), one ``nvcc`` each, all started together, with its
+   registers and spills (a spill, or no register line, fails), and the
+   instruction mix of the exact and the pruned nearest-neighbour kernels'
+   scan loops as built (``cuobjdump -sass``);
+3. CUDA-event timings (the median of repeated launches) of each kernel, of
+   its plain PyTorch version and, where one exists, of the single PyTorch
+   call that computes the same function, beside the kernel's bound, at the
+   shapes the paths give it, each held to its plain version there:
+   - K1 (``nn_exact``) at the v_t_g step's (48, 30000) x 30000, the touch
+     step's (192, 4000) x 4000, the autoencoder's (48, 30000) x 6400, a
+     chunk of the environment's candidates (90, 30000) x 30000, a chunk of
+     the supervised policy's probes (45, 30000) x 30000, one observation
+     (9, 30000) x 30000, and one of 4 shards of the v_t_g distance either
+     way, (48, 30000) x 7500 and (48, 7500) x 30000; distances and indices
+     equal to the plain version's, both ways;
+   - K3 (``nn_cluster``) and the chunk selection (``select_chunks``) at the
+     clustered step's shapes, with the prep of one clustered loss (Morton
+     sorts, padding, selection) and K3's agreement with K1 there, and K3 on
+     a shard either way; the table and K3 equal to their plain versions,
+     K3 never nearer than K1, and at the train step the same distance as
+     K1 for at least 0.90 of the queries; the selection of one loss must be
+     no slower than its torch-op version;
+   - K2 (``segsum_sorted``) on the backward streams: the v_t_g step's,
+     the touch step's, the clustered loss's (48, 60000) (also with its
+     stable sort), the autoencoder's, the sampler's of the vision and of the
+     touch step, and one face taking every sample of a row; each single,
+     as 20 calls between one pair of events, and as 20 calls replayed from
+     a CUDA graph (the device's time alone), beside ``scatter_add_``, which
+     the kernel must not be slower than by the device's time (on every
+     stream but the last, which is one address for the library's atomics);
+     within 1e-5 x (1 + the segment's sum of |v|) of its plain version and
+     bit-equal over two calls;
+4. the ``cuda`` tests above, in a child process;
+5. a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
+   ``{"ok": <no check failed>, "device": {...}}``.
+
+The ``kernels`` line holds one entry a kernel: its source, the TPU kernel it
+replaces, its times at each shape, and ``max_abs_err``, its largest
+difference from its plain version at the timed shapes.  ``launches``,
+``launches_by_path`` and K3's ``agreement_on_generated`` are null: the
+``cuda`` tests count the paths' launches and hold K3 against K1 on generated
+clouds.
 """
 
 from __future__ import annotations
 
-import contextlib
-import copy
-import dataclasses
 import json
-import os
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -112,33 +74,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
-from active_3d_vision_and_touch_tpu_torch.bench import bench_batch as main_batch  # bench.py's batch
-from active_3d_vision_and_touch_tpu_torch.active.policies.ddqn import DDQNEngine
-from active_3d_vision_and_touch_tpu_torch.active.policies.nearest import NearestNeighborEngine
-from active_3d_vision_and_touch_tpu_torch.active.policies.simple import EvenEngine
-from active_3d_vision_and_touch_tpu_torch.active.policies.supervised import SupervisedEngine
-from active_3d_vision_and_touch_tpu_torch.core import build_adj_info, touch_chart, vision_charts
-from active_3d_vision_and_touch_tpu_torch.core.config import (
-    AutoencoderConfig,
-    PolicyConfig,
-    SimConfig,
-    TouchConfig,
-    VisionConfig,
-    load_config,
-)
-from active_3d_vision_and_touch_tpu_torch.data import (
-    ActiveDataset,
-    Loader,
-    TouchDataset,
-    VisionDataset,
-    generation,
-    object_dirs,
-    random_object,
-)
-from active_3d_vision_and_touch_tpu_torch.data.generation import SPLIT_NAMES
-from active_3d_vision_and_touch_tpu_torch.models import gcn as gcn_module
-from active_3d_vision_and_touch_tpu_torch.models import prepare_charts
+from active_3d_vision_and_touch_tpu_torch.core import touch_chart
 from active_3d_vision_and_touch_tpu_torch.ops import (
     KERNELS,
     NN_CLUSTER,
@@ -146,105 +82,57 @@ from active_3d_vision_and_touch_tpu_torch.ops import (
     SEGSUM,
     SELECT_CHUNKS,
 )
-from active_3d_vision_and_touch_tpu_torch.ops import chamfer as chamfer_module
 from active_3d_vision_and_touch_tpu_torch.ops import chamfer_cluster as cluster
-from active_3d_vision_and_touch_tpu_torch.ops import sample as sampler
 from active_3d_vision_and_touch_tpu_torch.ops._cuda import build_all, nvcc_path
-from active_3d_vision_and_touch_tpu_torch.ops.chamfer import (
-    chamfer_distance,
-    chamfer_distance_sharded,
-    chamfer_shard_terms,
-    min_dists,
-    min_dists_plain,
-)
-from active_3d_vision_and_touch_tpu_torch.ops.chamfer_cluster import chamfer_clustered_tiled_gt
-from active_3d_vision_and_touch_tpu_torch.ops.sample import (
-    batch_sample,
-    draw_sample_noise,
-    sample_faces,
-)
+from active_3d_vision_and_touch_tpu_torch.ops.chamfer import REPEAT, min_dists, min_dists_plain
+from active_3d_vision_and_touch_tpu_torch.ops.sample import draw_sample_noise, sample_faces
 from active_3d_vision_and_touch_tpu_torch.ops.segsum import (
     scatter_add_3,
     segment_accumulate_sorted,
     segment_sum_plain,
 )
-from active_3d_vision_and_touch_tpu_torch.sim import Sampler, Scene, raster
 from active_3d_vision_and_touch_tpu_torch.testing import (
-    INTERPOLATE_CASES,
-    NN_CLUSTER_CASES,
-    NN_SHAPES,
-    NN_TIE_CASES,
-    SEGSUM_CASES,
-    SELECT_CASES,
-    cluster_first_argmin,
-    interpolate_backward_float64,
-    interpolate_case,
-    nn_cluster_case,
-    nn_shape_case,
-    nn_tie_case,
-    segsum_case,
-    select_case,
+    CHUNK,
+    CHUNKS_PER_TILE,
+    MIN_AGREEMENT,
+    clustered_clouds,
+    clustered_searches,
+    folded_samples,
+    sorted_padded,
+    surface_clouds,
+    vtg_mesh,
 )
-from active_3d_vision_and_touch_tpu_torch.train.autoencoder import (
-    AutoencoderEngine,
-    build_autoencoder,
-)
-from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
-from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
-from active_3d_vision_and_touch_tpu_torch.utils import profiler as recorder
-from active_3d_vision_and_touch_tpu_torch.utils import viz
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# the v_t_g train step of bench.py, on the port
-MAIN = dict(
-    use_img=True, use_touch=True, finger=False, batch_size=16,
-    number_points=30000, loss_nn="exact", eval=True,
-)
-REPEAT = 3  # Chamfer repeats folded onto the batch: 48 clouds per launch
-CHUNK, CHUNKS_PER_TILE = 128, 24  # the clustered search's defaults
-# Least share of queries whose clustered neighbour is the exact one, on the
-# surface clouds of this script at 30k points, in either direction.  An
-# H100 showed 0.9765 (predictions -> gt) and 0.9273 (gt -> predictions); the
-# clouds are made from a seed, so a fall below 0.90 is a change in the code
-MIN_AGREEMENT = 0.90
-# K1's time targets at the main paths' shapes, on a card at its 700 W limit.
-# They are printed as met or missed and fail nothing: a card set to a lower
-# limit runs slower.  What is checked is relative, within one run
-K1_TARGET_MS = {
-    "(48, 30000)x30000": 16.0,
-    "the touch shape (192, 4000)x4000": 1.25,
-    "the autoencoder shape (48, 30000)x6400": 3.2,
-    "the env chunk shape (90, 30000)x30000": 28.0,
-    "the supervised probe chunk shape (45, 30000)x30000": 14.0,
-    "the observation shape (9, 30000)x30000": 4.0,
-}
-# the autoencoder's decoded points (its 80 x 80 folding grid), the
-# environment's candidates per scoring pass (score_candidates' default chunk)
-# and the supervised policy's probes (PolicyConfig.training_actions), which
-# make a chunk of their own
-AE_POINTS, ENV_CHUNK, PROBES = 80 * 80, 10, 5
-# the same for K3, either way, and for the chunk selection of one loss (both
-# directions, with the torch ops that feed the kernel)
-K3_TARGET_MS = 1.50
-SELECT_TARGET_MS = 2.0
 SM_LANES = 132 * 128  # an H100 SXM: 132 SMs, each issuing for 4 x 32 lanes a clock
-EXPERIMENTS = str(ROOT / "build" / "chip_smoke")
-# the generated world: 8 procedural objects of 50 grasps; the default split
-# of those 8 names puts 3 of them, an env batch, in "auto_train"
-GENERATED_OBJECTS, GEN_ACTIONS, LIVE_SPLIT = 8, 50, "auto_train"
-GEN_DIM, GEN_POINTS = 128, 30000  # the voxel grid and the cloud of generate_dataset's defaults
-# live against cached code-2 charts: the cache's images were truncated to
-# uint8, the live ones are not.  An H100 showed 2.87e-7 at most (the touch
-# model at seed 0 on the generated world)
-LIVE_CHART_TOL = 1e-5
+N = 30000  # the v_t_g step's points a cloud
+CUDA_TESTS = ("tests/test_torch_kernels.py", "tests/test_torch_step_graph.py", "tests/test_torch_card.py")
+# the autoencoder's decoded points (its 80 x 80 folding grid), the
+# environment's candidates per scoring pass (score_candidates' default
+# chunk) and the supervised policy's probes (PolicyConfig.training_actions)
+AE_POINTS, ENV_CHUNK, PROBES = 80 * 80, 10, 5
+# K1's time targets by shape, on a card at its 700 W limit.  They are
+# printed as met or missed and fail nothing: a card set to a lower limit
+# runs slower.  The same for K3, either way, and for the chunk selection
+# of one loss (both directions, with the torch ops that feed the kernel)
+K1_TARGET_MS = {
+    "main": 16.0, "touch_shape": 1.25, "autoencoder_shape": 3.2, "env_chunk_shape": 28.0,
+    "probe_chunk_shape": 14.0, "observation_shape": 4.0,
+}
+K3_TARGET_MS, SELECT_TARGET_MS = 1.50, 2.0
+
+
+FAILED: list[str] = []
 
 
 def check(cond: bool, msg: str) -> None:
+    """Records and prints a failed check; the run goes on."""
     if not cond:
-        raise RuntimeError(msg)
+        FAILED.append(msg)
+        print(f"FAILED: {msg}", flush=True)
 
 
 def time_ms(fn, reps: int = 10, inner: int = 1) -> float:
@@ -288,39 +176,16 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def surface_clouds(b: int, n: int, g: torch.Generator, dev: torch.device) -> torch.Tensor:
-    """(b, n, 3) surface-like clouds made on the card from the generator:
-    area-weighted samples of the vision atlas (a sphere of radius 0.25),
-    scaled per axis by 0.6-1.4 and bent by a low-frequency displacement.
-    The pruned search is built for surfaces; a Gaussian volume is none."""
-    atlas = vision_charts()
-    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(b, -1, -1)
-    verts = verts * (0.6 + 0.8 * torch.rand(b, 1, 3, device=dev, generator=g))
-    phase = 6.28 * torch.rand(b, 1, 3, device=dev, generator=g)
-    verts = verts + 0.03 * torch.sin(9.0 * verts.roll(1, dims=-1) + phase)
-    faces = torch.as_tensor(atlas.faces, device=dev).long()
-    return batch_sample(verts, faces, n, generator=g)
-
-
-def surface_batch(cfg: VisionConfig, dev: torch.device, seed: int = 0) -> dict:
-    """main_batch with a surface-like gt cloud, for the clustered loss."""
-    batch = main_batch(cfg, seed)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    batch["gt_points"] = surface_clouds(cfg.batch_size, cfg.number_points, g, dev)
-    return batch
-
-
-def touch_batch(cfg: TouchConfig, seed: int = 0) -> dict:
-    """A seeded random batch shaped as the touch trainer's: gel images,
-    fingertip poses and local touch point clouds of a few millimetres."""
-    rng = np.random.default_rng(seed)
-    b = cfg.batch_size
-    return {
-        "sim_touch": rng.uniform(size=(b, 121, 121, 3)).astype(np.float32),
-        "ref_pos": (rng.normal(size=(b, 3)) * 0.1).astype(np.float32),
-        "ref_rot": np.linalg.qr(rng.normal(size=(b, 3, 3)))[0].astype(np.float32),
-        "samples": (rng.normal(size=(b, cfg.num_samples, 3)) * 0.005).astype(np.float32),
-    }
+def time_ms_and_clock(fn, reps: int = 20, inner: int = 1) -> tuple[float, int]:
+    """:func:`time_ms` of ``fn`` and the SM clock in MHz that ``nvidia-smi``
+    reads while the launches run.  The query takes longer than a few short
+    launches, so a short ``fn`` is given an ``inner`` that keeps the card
+    busy for some tens of milliseconds."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    ms = time_ms(fn, reps, inner)
+    return ms, int(smi.communicate(timeout=60)[0].split()[0])
 
 
 def phase_environment() -> str:
@@ -338,13 +203,15 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
+    for k in KERNELS:  # a library already built prints no ptxas lines to hold
+        k.library.unlink(missing_ok=True)
     seconds = build_all(list(KERNELS))
     print(f"build: {len(KERNELS)} kernels in {seconds:.2f} s")
     for k in KERNELS:
         used = [ln.strip() for ln in k.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"  {k.name}: {'; '.join(used) or 'library already built'}")
-        spills = [ln for ln in used if "spill" in ln]
-        check(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+        print(f"  {k.name}: {'; '.join(used)}")
+        check(any("registers" in ln for ln in used), f"{k.name}: ptxas printed no register line")
+        check(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in used if "spill" in ln),
               f"{k.name}: ptxas reports register spills")
     for k in (NN_EXACT, NN_CLUSTER):
         print(f"  {k.name} scan loop as built: {sass_inner_loop(k)}")
@@ -378,50 +245,31 @@ def sass_inner_loop(kernel) -> str:
             + f", {sum(n for n, _ in mix[8:])} others")
 
 
-def check_nn(x: torch.Tensor, y: torch.Tensor, label: str) -> float:
-    """K1 against its plain version: tolerance 0 (same rounding, same
-    order, first index wins); returns the max abs distance error."""
-    d, i = min_dists(x, y)
-    d_p, i_p = min_dists_plain(x, y)
-    err = float((d - d_p).abs().max())
-    mismatch = int((i != i_p).sum())
-    print(f"  nn_exact {label} {tuple(x.shape[:2])}x{y.shape[1]}: "
-          f"max_abs_err {err} index mismatches {mismatch}")
-    check(err == 0.0 and mismatch == 0, f"nn_exact disagrees with its plain version at {label}")
-    return err
-
-
-def check_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int, label: str,
-                 twice: bool = False) -> float:
-    """K2 against its plain version (index_add_, which adds with atomics on
-    the card): |err| <= 1e-5 * (1 + Σ|v| of the segment).  ``twice`` runs
-    the kernel a second time on the same input and requires equal bits."""
-    out = segment_accumulate_sorted(idx_s, vals_s, s)
-    if twice:
-        check(torch.equal(out, segment_accumulate_sorted(idx_s, vals_s, s)),
-              f"segsum_sorted gave two different results on one input at {label}")
-    ref = segment_sum_plain(idx_s, vals_s, s)
-    scale = segment_sum_plain(idx_s, vals_s.abs(), s)
-    err = float((out - ref).abs().max())
-    ok = bool(((out - ref).abs() <= 1e-5 * (1 + scale)).all())
-    rows = torch.arange(idx_s.shape[0], device=idx_s.device)[:, None] * (s + 1)
-    largest = int(torch.bincount((idx_s.clamp(0, s).long() + rows).flatten()).max())
-    print(f"  segsum_sorted {label} {tuple(idx_s.shape)}->S={s}: max_abs_err {err} "
-          f"largest run in a row {largest}{'  bit-equal twice' if twice else ''}")
-    check(ok, f"segsum_sorted disagrees with its plain version at {label}")
-    return err
-
-
-def time_ms_and_clock(fn, reps: int = 20, inner: int = 1) -> tuple[float, int]:
-    """:func:`time_ms` of ``fn`` and the SM clock in MHz that ``nvidia-smi``
-    reads while the launches run.  The query takes longer than a few short
-    launches, so a short ``fn`` is given an ``inner`` that keeps the card
-    busy for some tens of milliseconds."""
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-        stdout=subprocess.PIPE, text=True)
-    ms = time_ms(fn, reps, inner)
-    return ms, int(smi.communicate(timeout=60)[0].split()[0])
+def make_clouds(g: torch.Generator) -> dict:
+    """The kernels' inputs at the paths' shapes, from one seed.  Prediction
+    clouds are 3 x 30k area-weighted samples of the initial v_t_g atlas (its
+    touch slots at 0, as the vision step fuses them) per mesh, folded onto
+    the batch; gt clouds are Gaussian (``gt``, the v_t_g step's; ``decoded``,
+    the autoencoder's 6400 points; the touch step's few-millimetre clouds)
+    or surface-like (``surface``, the clustered step's 16; the env's 3; the
+    shards'), drawn from ``g`` on its device."""
+    dev = g.device
+    verts, faces = vtg_mesh(dev)
+    folded = lambda meshes: folded_samples(verts.expand(meshes, -1, -1), faces, N, g)  # noqa: E731
+    tiled = lambda t, k=1: t.repeat_interleave(k, 0).repeat(REPEAT, 1, 1)  # noqa: E731
+    chart = touch_chart()
+    gt3 = surface_clouds(3, N, g, dev)
+    return {
+        **clustered_clouds(g, dev, N),
+        "gt": tiled(torch.randn(16, N, 3, device=dev, generator=g) * 0.1),
+        "touch_preds": folded_samples(torch.as_tensor(chart.verts, device=dev)[None].expand(64, -1, -1),
+                                      torch.as_tensor(chart.faces, device=dev).long(), 4000, g),
+        "touch_gt": tiled(torch.randn(64, 4000, 3, device=dev, generator=g) * 0.005),
+        "decoded": tiled(torch.randn(16, AE_POINTS, 3, device=dev, generator=g) * 0.1),
+        "env_preds": folded(3 * ENV_CHUNK), "env_gt": tiled(gt3, ENV_CHUNK),
+        "probe_preds": folded(3 * PROBES), "probe_gt": tiled(gt3, PROBES),
+        "obs_preds": folded(3), "obs_gt": tiled(gt3),
+    }
 
 
 def time_nn(x: torch.Tensor, y: torch.Tensor, plain_reps: int) -> dict:
@@ -445,191 +293,53 @@ def time_nn(x: torch.Tensor, y: torch.Tensor, plain_reps: int) -> dict:
     }
 
 
-def time_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int) -> dict:
-    """K2's times on one sorted stream beside ``scatter_add_``'s, each as
-    the median of single calls, as 20 calls between one pair of events, and
-    as 20 calls replayed from a CUDA graph (the device's time alone)."""
-    b, m = idx_s.shape
-    expand = idx_s.long()[..., None].expand(-1, -1, 3)
-    kernel = lambda: segment_accumulate_sorted(idx_s, vals_s, s)  # noqa: E731
-    library = lambda: torch.zeros(  # noqa: E731
-        b, s, 3, device=idx_s.device).scatter_add_(1, expand, vals_s)
-    return {
-        "ms": time_ms(kernel, 50),
-        "ms_batched": time_ms(kernel, 10, inner=20),
-        "ms_graphed": graph_ms(kernel),
-        "plain_ms": time_ms(lambda: segment_sum_plain(idx_s, vals_s, s), 20),
-        "library_ms": time_ms(library, 50),
-        "library_ms_batched": time_ms(library, 10, inner=20),
-        "library_ms_graphed": graph_ms(library),
-        # ids (4 B) and values (12 B) read once, 12 B written per segment;
-        # the kernel's zero-fill of empty segments is not in the bound
-        "bound_ms": (b * m * 16 + b * s * 12) / PEAK_HBM_BYTES * 1e3,
-        "bound_by": "bytes",
+def phase_nn(c: dict) -> dict:
+    """K1 at every shape: its numbers at the v_t_g step's at the top, each
+    other shape's under its key."""
+    shapes = {
+        "main": ("preds", "gt", 10), "touch_shape": ("touch_preds", "touch_gt", 3),
+        "autoencoder_shape": ("preds", "decoded", 5), "env_chunk_shape": ("env_preds", "env_gt", 2),
+        "probe_chunk_shape": ("probe_preds", "probe_gt", 2),
+        "observation_shape": ("obs_preds", "obs_gt", 5),
+        "shard_x_to_y": ("shard_x", "shard_y", 3), "shard_y_to_x": ("shard_y", "shard_x", 3),
     }
-
-
-def print_nn(label: str, t: dict) -> None:
-    print(f"  nn_exact at {label}: kernel {t['ms']:.3f} ms (y->x {t['ms_y_to_x']:.3f} ms)  "
-          f"plain {t['plain_ms']:.3f} ms  bound {t['bound_ms']:.4f} ms (operations), "
-          f"issue bound {t['issue_bound_ms']:.4f} ms, of which the kernel reaches "
-          f"{t['issue_bound_ms'] / t['ms']:.3f}; {t['issue_slots_a_pair']:.2f} issue slots a pair "
-          f"at the {t['sm_clock_mhz']} MHz read meanwhile; target {K1_TARGET_MS[label]} ms "
-          f"{'met' if max(t['ms'], t['ms_y_to_x']) <= K1_TARGET_MS[label] else 'MISSED'}")
-
-
-def print_segsum(label: str, t: dict) -> None:
-    """Prints K2's times and fails unless the kernel is no slower than
-    ``scatter_add_`` by the device's time (graph replays): the single and
-    batched readings hold the host's enqueue time and are only printed."""
-    print(f"  segsum_sorted at {label}: kernel {t['ms']:.4f} ms single, {t['ms_batched']:.4f} ms "
-          f"batched, {t['ms_graphed']:.4f} ms graphed  plain {t['plain_ms']:.3f} ms  "
-          f"library (scatter_add_) {t['library_ms']:.4f} ms single, "
-          f"{t['library_ms_batched']:.4f} ms batched, {t['library_ms_graphed']:.4f} ms graphed  "
-          f"bound {t['bound_ms']:.4f} ms (bytes); kernel no slower than the library: "
-          f"single {t['ms'] <= t['library_ms']}, batched {t['ms_batched'] <= t['library_ms_batched']}")
-    check(t["ms_graphed"] <= t["library_ms_graphed"],
-          f"segsum_sorted is slower than scatter_add_ at {label}")
-
-
-def phase_kernels(dev: torch.device) -> dict:
-    """Kernels against their plain versions, then timings at main-path shapes."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    nn_err = 0.0
-    for b, n, m in ((2, 4096, 4096), (1, 30000, 30000)):
-        x = torch.randn(b, n, 3, device=dev, generator=g)
-        y = torch.randn(b, m, 3, device=dev, generator=g)
-        nn_err = max(nn_err, check_nn(x, y, "random"))
-    # ties: every ref repeated, queries sitting on refs
-    base = torch.randint(-3, 4, (2, 500, 3), device=dev, generator=g).float()
-    nn_err = max(nn_err, check_nn(base[:, :300].contiguous(), torch.cat([base, base], 1), "ties"))
-    # sizes on and beside the tiles, and equal minima placed in one load of
-    # four refs, in the next load, in the next group of eight and in
-    # neighbouring tiles
-    for n, m in NN_SHAPES:
-        x, y = (torch.from_numpy(a).to(dev) for a in nn_shape_case(n, m))
-        nn_err = max(nn_err, check_nn(x, y, "tile edge"))
-    for name in NN_TIE_CASES:
-        x, y = (torch.from_numpy(a).to(dev) for a in nn_tie_case(name))
-        nn_err = max(nn_err, check_nn(x, y, f"ties {name}"))
-
-    # main-path inputs: 3 x 30k area-weighted samples of the initial atlas
-    # per cloud, folded onto the batch, against the tiled gt cloud
-    atlas = vision_charts()
-    faces = torch.as_tensor(build_adj_info(atlas).faces, device=dev).long()
-    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(16, -1, -1)
-    fused = torch.cat([verts, torch.zeros(16, 500, 3, device=dev)], 1)  # touch slots
-    n = MAIN["number_points"]
-    pts = batch_sample(fused, faces, REPEAT * n, generator=g)
-    preds = torch.cat(torch.split(pts, n, dim=1), 0).contiguous()  # (48, 30k, 3)
-    gt = (torch.randn(16, n, 3, device=dev, generator=g) * 0.1).repeat(REPEAT, 1, 1)
-    nn_err = max(nn_err, check_nn(preds, gt, "train-step x->y"))
-    nn_err = max(nn_err, check_nn(gt, preds, "train-step y->x"))
-
-    # K2 on the backward's sorted stream: the gt->prediction argmins, which
-    # send many gt points to one sample (the duplicate-heavy direction)
-    _, iy = min_dists(gt, preds)
-    idx_s, perm = torch.sort(iy, dim=1, stable=True)
-    vals = torch.randn(gt.shape, device=dev, generator=g) * 1e-4
-    vals_s = torch.gather(vals, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
-    seg_err = check_segsum(idx_s, vals_s, n, "train-step", twice=True)
-    # synthetic: a duplicate-heavy id, empty segments, out-of-range ids
-    ids = torch.randint(0, n + 2000, (48, n), device=dev, generator=g)
-    ids[:, :5000] = 17
-    ids[ids % 7 == 3] = 12
-    syn_s, _ = torch.sort(ids.int(), dim=1)
-    syn_v = torch.randn(48, n, 3, device=dev, generator=g)
-    seg_err = max(seg_err, check_segsum(syn_s.contiguous(), syn_v, n, "synthetic", twice=True))
-    # run lengths around the one-thread / one-warp threshold and the slab
-    # size, short runs across a slab's end, a slab packed with 9-entry runs,
-    # rows with nothing to sum, stream lengths that are no multiple of four
-    for name in SEGSUM_CASES:
-        case_idx, case_vals, case_s = segsum_case(name)
-        seg_err = max(seg_err, check_segsum(
-            torch.from_numpy(case_idx).to(dev), torch.from_numpy(case_vals).to(dev), case_s,
-            name, twice=True))
-
-    # the touch trainer's shapes: 64 charts x 3 repeats of 4000 samples of
-    # the chart sheet against clouds of a few millimetres
-    chart = touch_chart()
-    cverts = torch.as_tensor(chart.verts, device=dev)[None].expand(64, -1, -1)
-    cfaces = torch.as_tensor(chart.faces, device=dev).long()
-    tpts = batch_sample(cverts, cfaces, REPEAT * 4000, generator=g)
-    tpreds = torch.cat(torch.split(tpts, 4000, dim=1), 0).contiguous()  # (192, 4000, 3)
-    tgt = (torch.randn(64, 4000, 3, device=dev, generator=g) * 0.005).repeat(REPEAT, 1, 1)
-    nn_err = max(nn_err, check_nn(tpreds, tgt, "touch x->y"))
-    nn_err = max(nn_err, check_nn(tgt, tpreds, "touch y->x"))
-    _, tiy = min_dists(tgt, tpreds)
-    tidx_s, tperm = torch.sort(tiy, dim=1, stable=True)
-    tvals_s = torch.gather(
-        torch.randn(192, 4000, 3, device=dev, generator=g) * 1e-4, 1,
-        tperm[..., None].expand(-1, -1, 3)).contiguous()
-    seg_err = max(seg_err, check_segsum(tidx_s, tvals_s, 4000, "touch"))
-    timing = {
-        "nn_exact": {**time_nn(preds, gt, 10), "max_abs_err": nn_err,
-                     "touch_shape": time_nn(tpreds, tgt, 3)},
-        "segsum_sorted": {**time_segsum(idx_s, vals_s, n), "max_abs_err": seg_err,
-                          "touch_shape": time_segsum(tidx_s, tvals_s, 4000)},
-    }
-    print_nn("(48, 30000)x30000", timing["nn_exact"])
-    print_nn("the touch shape (192, 4000)x4000", timing["nn_exact"]["touch_shape"])
-    print_segsum("(48, 30000)->S=30000", timing["segsum_sorted"])
-    print_segsum("the touch shape (192, 4000)->S=4000", timing["segsum_sorted"]["touch_shape"])
-    one = preds[:1].contiguous(), gt[:1].contiguous()
+    out, err = {}, 0.0
+    for key, (a, b, plain_reps) in shapes.items():
+        x, y = c[a], c[b]
+        t = out[key] = time_nn(x, y, plain_reps)
+        for p, q in ((x, y), (y, x)):  # tolerance 0: same rounding, same order, first index wins
+            (d, i), (d_p, i_p) = min_dists(p, q), min_dists_plain(p, q)
+            err = max(err, float((d - d_p).abs().max()))
+            check(torch.equal(d, d_p) and torch.equal(i, i_p),
+                  f"nn_exact disagrees with its plain version at {key} {tuple(p.shape[:2])}x{q.shape[1]}")
+        target = K1_TARGET_MS.get(key)
+        met = "" if target is None else (
+            f"; target {target} ms {'met' if max(t['ms'], t['ms_y_to_x']) <= target else 'MISSED'}")
+        print(f"  nn_exact at {key} {tuple(x.shape[:2])}x{y.shape[1]}: kernel {t['ms']:.3f} ms "
+              f"(y->x {t['ms_y_to_x']:.3f} ms)  plain {t['plain_ms']:.3f} ms  bound "
+              f"{t['bound_ms']:.4f} ms (operations), issue bound {t['issue_bound_ms']:.4f} ms, of which "
+              f"the kernel reaches {t['issue_bound_ms'] / t['ms']:.3f}; {t['issue_slots_a_pair']:.2f} "
+              f"issue slots a pair at the {t['sm_clock_mhz']} MHz read meanwhile{met}")
+    one = c["preds"][:1].contiguous(), c["gt"][:1].contiguous()
     print(f"  yardstick at (1, 30000)x30000: nn_exact {time_ms(lambda: min_dists(*one)):.3f} ms, "
           f"torch.cdist(...).min(-1) {time_ms(lambda: torch.cdist(*one).min(-1)):.3f} ms")
-    return timing
+    return {**out.pop("main"), "max_abs_err": err, **out}
 
 
-def check_cluster(xs, ys, ids, chunk: int, label: str, plain_ys=None, plain_ids=None) -> float:
-    """K3 against its plain version: tolerance 0 on distance and index
-    (same rounding, same scan order, same tie rule).  The plain version
-    needs every id to name a chunk; ``plain_ys`` and ``plain_ids`` hand it
-    other inputs for the same function, in which an id that names no chunk
-    names one more chunk of +inf points.  For such a case the check on the
-    kernel's own inputs is the numpy scan that the caller holds it against."""
-    d, i = cluster.nn_cluster(xs, ys, ids, chunk)
-    d_p, i_p = cluster.nn_cluster_plain(
-        xs, ys if plain_ys is None else plain_ys, ids if plain_ids is None else plain_ids, chunk)
-    err = float((d - d_p).abs().max())
-    mismatch = int((i != i_p).sum())
-    print(f"  nn_cluster {label} xs {tuple(xs.shape[:2])} refs {tuple(ys.shape[:2])} "
-          f"table {tuple(ids.shape)} S={chunk}: max_abs_err {err} index mismatches {mismatch}")
-    check(err == 0.0 and mismatch == 0, f"nn_cluster disagrees with its plain version at {label}")
-    return err
-
-
-def check_select(xs, ys, chunk: int, per_tile: int, label: str) -> tuple[torch.Tensor, float]:
-    """The selection kernel against its plain version, which start from
-    the same chunk centres, radii and tile centroids: the tables equal
-    index for index.  Returns the kernel's table and the largest difference
-    between two ids that stand at the same place."""
-    ids = cluster.select_chunks(xs, ys, chunk, per_tile)
-    ids_p = cluster.select_chunks_plain(xs, ys, chunk, per_tile)
-    check(ids.dtype == torch.int32 and ids.shape == ids_p.shape,
-          f"select_chunks: table {tuple(ids.shape)} {ids.dtype} at {label}")
-    mismatch = int((ids != ids_p).sum())
-    err = float((ids.long() - ids_p.long()).abs().max())
-    c = ys.shape[1] // chunk
-    print(f"  select_chunks {label} xs {tuple(xs.shape[:2])} refs {tuple(ys.shape[:2])} S={chunk} "
-          f"-> table {tuple(ids.shape)}: max_abs_err {err} index mismatches {mismatch}")
-    check(err == 0.0 and mismatch == 0, f"select_chunks disagrees with its plain version at {label}")
-    check(int(ids.min()) >= 0 and int(ids.max()) < c, f"select_chunks: id outside [0, C) at {label}")
-    return ids, err
-
-
-def check_against_exact(xs, ys_tiled, i_sorted, label: str) -> float:
-    """The clustered neighbour against K1, the oracle: the re-derived
-    distance is never below the exact one (a hard check); returns the
-    share of queries whose distance equals the exact one."""
-    d_exact, _ = min_dists(xs, ys_tiled)
-    d_found = cluster._sq_dist(xs, cluster._take(ys_tiled, i_sorted.long()))
-    agree = float((d_found == d_exact).float().mean())
-    excess = float(d_found.mean() / d_exact.mean() - 1.0)
-    print(f"  nn_cluster vs nn_exact {label}: neighbour agreement {agree:.6f}, "
-          f"mean distance {excess:.3e} above the exact one")
-    check(bool((d_found >= d_exact).all()), f"clustered distance below the exact one at {label}")
-    return agree
+def k3_plain_and_bound(xs, ys, ids) -> dict:
+    """K3's plain version's time on one table and K3's bound: 3 sub + 3 mul
+    + 2 add + 1 compare per (query, listed ref) pair; by bytes (queries,
+    distinct refs and table read once, outputs written once) the bound is
+    far lower."""
+    b, n, t = xs.shape[0], xs.shape[1], ids.shape[2]
+    pairs = b * n * t * CHUNK
+    moved = (xs.numel() + ys.numel() + ids.numel() + 2 * b * n) * 4
+    return {
+        "plain_ms": time_ms(lambda: cluster.nn_cluster_plain(xs, ys, ids, CHUNK), 3),
+        "library_ms": None,  # no single PyTorch call computes a table-driven pruned NN
+        "bound_ms": max(9.0 * pairs / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
+        "bound_by": "operations" if 9.0 * pairs / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
+    }
 
 
 def time_select(xs_p, ys1_p, ys_p, tiles: int) -> dict:
@@ -676,114 +386,78 @@ def time_select(xs_p, ys1_p, ys_p, tiles: int) -> dict:
     }
 
 
-def phase_cluster(dev: torch.device) -> tuple[dict, dict, dict]:
-    """K3 and the selection kernel against their plain versions and K3
-    against K1, then their timings and the prep's at the clustered train
-    step's shapes.  Returns K3's numbers, the selection kernel's, and K2's
-    on the clustered backward's stream."""
-    g = torch.Generator(device=dev).manual_seed(1)
-    on_card = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    err = 0.0
-    # small surface case: S 64, T 16 of 18 chunks
-    pts = surface_clouds(2, 1024 + 1100, g, dev)  # in face order: shuffle, then split
-    pts = pts[:, torch.randperm(pts.shape[1], device=dev, generator=g)]
-    x, y = pts[:, :1024], pts[:, 1024:] * 1.01
-    xs = cluster._edge_pad_points(cluster._sort_by_morton(x)[0], 256).contiguous()
-    ys = cluster._edge_pad_points(cluster._sort_by_morton(y)[0], 64).contiguous()
-    ids, select_err = check_select(xs, ys, 64, 16, "surface")
-    err = max(err, check_cluster(xs, ys, ids, 64, "surface"))
-    # ties: 5 distinct chunks of lattice points, each 4 times, listed in an
-    # order that is not the index order; queries sit on lattice points, so
-    # equal distances occur inside a chunk and across chunks
-    base = torch.randint(-3, 4, (1, 5, 32, 3), device=dev, generator=g).float()
-    refs = base.repeat(1, 4, 1, 1).reshape(1, 20 * 32, 3).contiguous()
-    queries = torch.randint(-3, 4, (2, 512, 3), device=dev, generator=g).float()
-    table = torch.tensor([17, 2, 12, 7, 9, 4, 0], dtype=torch.int32, device=dev)
-    err = max(err, check_cluster(queries, refs, table.expand(2, 2, -1).contiguous(), 32, "ties"))
-    # chunk sizes that do and do not divide a group of eight list positions
-    # or a load of four, lists below, on and beyond a staging round, placed
-    # ties, a chunk listed twice, ids that name no chunk, folded ref rows
-    for name in NN_CLUSTER_CASES:
-        case = nn_cluster_case(name)
-        args = on_card(case["xs"]), on_card(case["ys"]), on_card(case["ids"]), case["chunk"]
-        err = max(err, check_cluster(
-            *args, name, plain_ys=on_card(case["ys_valid"]) if "ys_valid" in case else None,
-            plain_ids=on_card(case["ids_valid"]) if "ids_valid" in case else None))
-        d_ref, i_ref = cluster_first_argmin(case["xs"], case["ys"], case["ids"], case["chunk"])
-        d, i = (t.cpu().numpy() for t in cluster.nn_cluster(*args))
-        check(bool((d == d_ref).all() and (i == i_ref).all()),
-              f"nn_cluster disagrees with the numpy scan at {name}")
-    # selections: every chunk a candidate, T >= C, equal bounds, equal
-    # scores, a tile in two regions, folded ref rows, NaN and infinite queries
-    for name in SELECT_CASES:
-        case = select_case(name)
-        select_err = max(select_err, check_select(
-            on_card(case["xs"]), on_card(case["ys"]), case["chunk"], case["chunks_per_tile"], name)[1])
-
-    # the clustered train step's inputs: 48 folded prediction clouds sampled
-    # from the initial atlas against 16 distinct surface-like gt clouds
-    n = MAIN["number_points"]
-    atlas = vision_charts()
-    faces = torch.as_tensor(atlas.faces, device=dev).long()
-    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(16, -1, -1)
-    pts = batch_sample(verts, faces, REPEAT * n, generator=g)
-    preds = torch.cat(torch.split(pts, n, dim=1), 0).contiguous()  # (48, 30k, 3)
-    gt = surface_clouds(16, n, g, dev)
+def phase_cluster(c: dict, g: torch.Generator) -> tuple[dict, dict, tuple]:
+    """K3 and the selection at the clustered step's shapes (48 folded
+    prediction clouds against 16 distinct surface-like gt clouds) and K3 on
+    a shard either way.  Returns K3's numbers, the selection's, and the
+    clustered backward's stream for K2 (its ids unsorted, its values)."""
+    preds, gt = c["preds"], c["surface"]
 
     def prep():
         """Everything of a clustered loss's forward but the two scans."""
-        xs, _ = cluster._sort_by_morton(preds)
-        ys1, _ = cluster._sort_by_morton(gt)
-        xs_p = cluster._edge_pad_points(xs, 256).contiguous()
-        ys1_p = cluster._edge_pad_points(ys1, 256).contiguous()
+        xs_p, ys1_p = sorted_padded(preds, 256), sorted_padded(gt, 256)
         ys_p = ys1_p.repeat(REPEAT, 1, 1)
         ids1 = cluster.select_chunks(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE)
-        ids2 = cluster.select_chunks(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE)
-        return xs_p, ys1_p, ys_p, ids1, ids2
+        return xs_p, ys1_p, ys_p, ids1, cluster.select_chunks(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE)
 
-    xs_p, ys1_p, ys_p, _, _ = prep()
-    ids1, err1 = check_select(xs_p, ys1_p, CHUNK, CHUNKS_PER_TILE, "train-step x->y (y_distinct 16)")
-    ids2, err2 = check_select(ys_p, xs_p, CHUNK, CHUNKS_PER_TILE, "train-step y->x")
-    select_err = max(select_err, err1, err2)
-    err = max(err, check_cluster(xs_p, ys1_p, ids1, CHUNK, "train-step x->y (y_distinct 16)"))
-    err = max(err, check_cluster(ys_p, xs_p, ids2, CHUNK, "train-step y->x"))
-    _, i1 = cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK)
-    _, i2 = cluster.nn_cluster(ys_p, xs_p, ids2, CHUNK)
-    agree = [check_against_exact(xs_p, ys_p, i1, "x->y"), check_against_exact(ys_p, xs_p, i2, "y->x")]
-    check(min(agree) >= MIN_AGREEMENT,
-          f"clustered neighbour agreement {agree} below {MIN_AGREEMENT}")
+    searches = clustered_searches(c)
+    (xs_p, ys1_p, ys_p), _ = searches["train step x->y"], prep()
+    err, select_err, agree, found, tables = 0.0, 0.0, [], {}, {}
+    for key, (xs, ys, ys_tiled) in searches.items():
+        # the table and K3 against their plain versions, index for index;
+        # K3's neighbours against K1's, the oracle: never nearer
+        ids = tables[key] = cluster.select_chunks(xs, ys, CHUNK, CHUNKS_PER_TILE)
+        plain_ids = cluster.select_chunks_plain(xs, ys, CHUNK, CHUNKS_PER_TILE)
+        select_err = max(select_err, float((ids.long() - plain_ids.long()).abs().max()))
+        check(ids.dtype == torch.int32 and torch.equal(ids, plain_ids)
+              and int(ids.min()) >= 0 and int(ids.max()) < ys.shape[1] // CHUNK,
+              f"select_chunks disagrees with its plain version at {key}")
+        d, i = found[key] = cluster.nn_cluster(xs, ys, ids, CHUNK)
+        d_p, i_p = cluster.nn_cluster_plain(xs, ys, ids, CHUNK)
+        err = max(err, float((d - d_p).abs().max()))
+        check(torch.equal(d, d_p) and torch.equal(i, i_p), f"nn_cluster disagrees with its plain version at {key}")
+        d_exact = min_dists(xs, ys_tiled)[0]
+        d_found = cluster._sq_dist(xs, cluster._take(ys_tiled, i.long()))
+        check(bool((d_found >= d_exact).all()), f"clustered distance below the exact one at {key}")
+        if key.startswith("train step"):
+            agree.append(float((d_found == d_exact).float().mean()))
+    check(min(agree) >= MIN_AGREEMENT, f"clustered neighbour agreement {agree} below {MIN_AGREEMENT}")
+    ids1, ids2 = tables["train step x->y"], tables["train step y->x"]
 
     b, np_, t = xs_p.shape[0], xs_p.shape[1], ids1.shape[2]
     pairs = b * np_ * t * CHUNK
-    moved = (xs_p.numel() + ys1_p.numel() + ids1.numel() + 2 * b * np_) * 4
     ms, sm_mhz = time_ms_and_clock(lambda: cluster.nn_cluster(xs_p, ys1_p, ids1, CHUNK), 20, inner=10)
     timing = {
         "ms": ms,
         "sm_clock_mhz": sm_mhz,
         "issue_slots_a_pair": ms * 1e-3 * sm_mhz * 1e6 * SM_LANES / pairs,
         "ms_y_to_x": time_ms(lambda: cluster.nn_cluster(ys_p, xs_p, ids2, CHUNK), 20),
-        "plain_ms": time_ms(lambda: cluster.nn_cluster_plain(xs_p, ys1_p, ids1, CHUNK), 3),
-        "library_ms": None,  # no single PyTorch call computes a table-driven pruned NN
-        # 3 sub + 3 mul + 2 add + 1 compare per (query, listed ref) pair; by
-        # bytes (queries, distinct refs and table read once, outputs written
-        # once) the bound is far lower
-        "bound_ms": max(9.0 * pairs / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
-        "bound_by": "operations" if 9.0 * pairs / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
+        **k3_plain_and_bound(xs_p, ys1_p, ids1),
         # nine instructions a pair, none fused, at one a lane a clock
         "issue_bound_ms": 2 * 9.0 * pairs / PEAK_FP32_OPS * 1e3,
-        "max_abs_err": err,
         "agreement_with_exact": agree,
+        "agreement_on_generated": None,
+        "prep_ms": time_ms(prep, 10),
     }
+    for key, search in (("shard_x_to_y", "shard x->y"), ("shard_y_to_x", "shard y->x")):
+        (xs, ys, _), ids = searches[search], tables[search]
+        timing[key] = {"ms": time_ms(lambda: cluster.nn_cluster(xs, ys, ids, CHUNK), 20),
+                       **k3_plain_and_bound(xs, ys, ids), "table": [ids.shape[2], ys.shape[1] // CHUNK]}
+        s = timing[key]
+        print(f"  nn_cluster at the {key} shape {tuple(xs.shape[:2])}, T {s['table'][0]} of "
+              f"{s['table'][1]} chunks: {s['ms']:.3f} ms  plain {s['plain_ms']:.3f} ms  bound "
+              f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
+    timing["max_abs_err"] = err
     select = {**time_select(xs_p, ys1_p, ys_p, b * np_ // 256), "max_abs_err": select_err}
     sort_ms = time_ms(lambda: (cluster._sort_by_morton(preds), cluster._sort_by_morton(gt)), 10)
-    timing["prep_ms"] = time_ms(prep, 10)
     print(f"  nn_cluster at {tuple(xs_p.shape[:2])}, T={t}, S={CHUNK}: kernel x->y {timing['ms']:.3f} ms, "
           f"y->x {timing['ms_y_to_x']:.3f} ms, plain {timing['plain_ms']:.3f} ms, "
           f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}), "
           f"issue bound {timing['issue_bound_ms']:.4f} ms, of which the kernel reaches "
           f"{timing['issue_bound_ms'] / timing['ms']:.3f}; {timing['issue_slots_a_pair']:.2f} issue "
           f"slots a pair at the {sm_mhz} MHz read meanwhile; target {K3_TARGET_MS} ms "
-          f"{'met' if max(timing['ms'], timing['ms_y_to_x']) <= K3_TARGET_MS else 'MISSED'}")
+          f"{'met' if max(timing['ms'], timing['ms_y_to_x']) <= K3_TARGET_MS else 'MISSED'}; "
+          f"neighbour agreement with nn_exact {agree}")
     print(f"  select_chunks at {tuple(xs_p.shape[:2])} x C={ys1_p.shape[1] // CHUNK}, T={t}: kernel "
           f"x->y {select['ms']:.4f} ms, y->x {select['ms_y_to_x']:.4f} ms, plain x->y "
           f"{select['plain_ms']:.3f} ms; bound {select['bound_ms']:.4f} ms ({select['bound_by']}), "
@@ -801,1571 +475,124 @@ def phase_cluster(dev: torch.device) -> tuple[dict, dict, dict]:
           f"{select['both_directions_ms']:.3f} ms; the two scans take "
           f"{timing['ms'] + timing['ms_y_to_x']:.3f} ms")
 
-    # K2 on the clustered backward's stream: per cloud the n own entries and
-    # the m cross entries, original-frame ids, one 60k-entry stable sort
+    # the clustered backward's stream: per cloud the n own entries and the
+    # m cross entries, original-frame ids, one 60k-entry stable sort
     xperm = cluster._sort_by_morton(preds)[1]
-    iy = i2[:, :n].long().clamp(0, n - 1)
+    iy = found["train step y->x"][1][:, :N].long().clamp(0, N - 1)
     idx = torch.cat([xperm, cluster._take(xperm, iy)], dim=1)  # (48, 60000)
-    vals = torch.randn(b, 2 * n, 3, device=dev, generator=g) * 1e-4
-    idx_s, perm = torch.sort(idx, dim=1, stable=True)
-    idx_s = idx_s.to(torch.int32).contiguous()
-    vals_s = torch.gather(vals, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
-    seg_err = check_segsum(idx_s, vals_s, n, "clustered stream")
-    stream = {
-        **time_segsum(idx_s, vals_s, n),
-        "with_sort_ms": time_ms(lambda: scatter_add_3(idx, vals, n), 20),
-        "max_abs_err": seg_err,
-    }
-    print_segsum(f"the {tuple(idx_s.shape)} clustered stream ->S={n}", stream)
-    print(f"  scatter_add_3 on that stream, with its stable sort: {stream['with_sort_ms']:.3f} ms")
-    return timing, select, stream
-
-
-def phase_sampler(dev: torch.device) -> dict:
-    """The sampler's backward: its cases against a float64 sum, then K2 on
-    the streams the train steps give it: 3 corners x 16 meshes of 3 x 30k
-    sorted face ids of the vision atlas, 3 corners x 64 touch charts of
-    3 x 4000; and on the vision shape with one face taking every sample,
-    which is one warp's work a row."""
-    for name in INTERPOLATE_CASES:
-        case = interpolate_case(name)
-        on_card = lambda k: torch.from_numpy(case[k]).to(dev)  # noqa: E731
-        verts = on_card("verts").requires_grad_()
-        out = sampler._interpolate(verts, on_card("idx"), on_card("w"), on_card("faces"))
-        before = SEGSUM.launches
-        (dverts,) = torch.autograd.grad(out, verts, on_card("g"))
-        ref = interpolate_backward_float64(case)
-        scale = interpolate_backward_float64(dict(case, w=np.abs(case["w"]), g=np.abs(case["g"])))
-        err = np.abs(dverts.cpu().numpy() - ref)
-        print(f"  sampler backward {name}: max_abs_err {err.max():.3e} against a float64 sum, "
-              f"{SEGSUM.launches - before} segment-sum launch")
-        # one float32 sum per face and one index_add_ per corner
-        check(bool((err <= 1e-5 * (1 + scale)).all()), f"sampler backward wrong at {name}")
-        check(SEGSUM.launches == before + 1, f"sampler backward: not one K2 launch at {name}")
-
-    g = torch.Generator(device=dev).manual_seed(2)
-    atlas = vision_charts()
-    verts = torch.as_tensor(atlas.verts, device=dev)[None].expand(16, -1, -1)
-    verts = torch.cat([verts, torch.zeros(16, 500, 3, device=dev)], 1)  # touch slots
-    chart = touch_chart()
-    out = {}
-    for label, verts, faces, num in (
-        ("sampler_stream", verts, build_adj_info(atlas).faces, REPEAT * MAIN["number_points"]),
-        ("touch_sampler_stream", torch.as_tensor(chart.verts, device=dev)[None].expand(64, -1, -1),
-         chart.faces, REPEAT * 4000),
-    ):
-        faces = torch.as_tensor(faces, device=dev).long()
-        f, rows = faces.shape[0], 3 * verts.shape[0]
-        e, _, _ = draw_sample_noise(verts.shape[0], num, g, dev)
-        ids = sample_faces(verts, faces, e).to(torch.int32).repeat(3, 1).contiguous()
-        vals = torch.randn(rows, num, 3, device=dev, generator=g) * 1e-4
-        name = label.replace("_", " ")
-        err = check_segsum(ids, vals, f, name, twice=True)
-        out[label] = {**time_segsum(ids, vals, f), "max_abs_err": err}
-        print_segsum(f"the {tuple(ids.shape)} {name} ->F={f}", out[label])
-        if label != "sampler_stream":
-            continue
-        # one face a row is one address for the library's atomics and one
-        # warp for the kernel: checked and printed, and held to no time
-        one_face = torch.full_like(ids, 17)
-        err = check_segsum(one_face, vals, f, "one face stream", twice=True)
-        t = out["one_face_stream"] = {**time_segsum(one_face, vals, f), "max_abs_err": err}
-        print(f"  segsum_sorted at the {tuple(ids.shape)} one face stream ->F={f}: kernel "
-              f"{t['ms']:.4f} ms single, {t['ms_graphed']:.4f} ms graphed  plain {t['plain_ms']:.3f} ms  "
-              f"library (scatter_add_) {t['library_ms']:.4f} ms single, "
-              f"{t['library_ms_graphed']:.4f} ms graphed  bound {t['bound_ms']:.4f} ms (bytes)")
-    return out
-
-
-def phase_slice_shapes(dev: torch.device) -> tuple[dict, dict]:
-    """K1 and K2 at the autoencoder's and the environment's shapes: against
-    their plain versions, then timed.  The autoencoder's loss holds 48
-    folded clouds of 30k samples of the frozen mesh against the 6400
-    decoded points, both ways, and its backward one segment sum of the
-    samples' argmins into the decoded points; one chunk of the
-    environment's candidate scores holds 3 objects x 10 candidates x 3
-    repeats of 30k samples against the gt clouds, and the supervised
-    policy's chunk of probes 3 objects x 5 probes x 3 repeats; one
-    observation (an env reset or step, the most of the policies' launches)
-    holds 3 objects x 3 repeats.  Returns K1's and K2's numbers."""
-    g = torch.Generator(device=dev).manual_seed(3)
-    n = MAIN["number_points"]
-    atlas = vision_charts()
-    faces = torch.as_tensor(build_adj_info(atlas).faces, device=dev).long()
-    verts = torch.as_tensor(atlas.verts, device=dev)[None]
-    verts = torch.cat([verts, torch.zeros(1, 500, 3, device=dev)], 1)  # touch slots
-
-    def folded(meshes: int) -> torch.Tensor:
-        pts = batch_sample(verts.expand(meshes, -1, -1), faces, REPEAT * n, generator=g)
-        return torch.cat(torch.split(pts, n, dim=1), 0).contiguous()
-
-    preds = folded(16)  # (48, 30k, 3)
-    decoded = (torch.randn(16, AE_POINTS, 3, device=dev, generator=g) * 0.1).repeat(REPEAT, 1, 1)
-    err = max(check_nn(preds, decoded, "autoencoder x->y"), check_nn(decoded, preds, "autoencoder y->x"))
-    env_preds = folded(3 * ENV_CHUNK)  # (90, 30k, 3)
-    gt3 = surface_clouds(3, n, g, dev)
-    env_gt = gt3.repeat_interleave(ENV_CHUNK, 0).repeat(REPEAT, 1, 1)
-    err = max(err, check_nn(env_preds, env_gt, "env chunk x->y"),
-              check_nn(env_gt, env_preds, "env chunk y->x"))
-    # the supervised policy's probes: 3 objects x 5 candidates x 3 repeats
-    probe_preds = folded(3 * PROBES)  # (45, 30k, 3)
-    probe_gt = gt3.repeat_interleave(PROBES, 0).repeat(REPEAT, 1, 1)
-    err = max(err, check_nn(probe_preds, probe_gt, "probe chunk x->y"),
-              check_nn(probe_gt, probe_preds, "probe chunk y->x"))
-    # one observation: 3 objects x 3 repeats, under one wave of the card
-    obs_preds = folded(3)  # (9, 30k, 3)
-    obs_gt = gt3.repeat(REPEAT, 1, 1)
-    err = max(err, check_nn(obs_preds, obs_gt, "observation x->y"),
-              check_nn(obs_gt, obs_preds, "observation y->x"))
-
-    # the backward's stream: the samples' argmins into the decoded points
-    _, ix = min_dists(preds, decoded)
-    idx_s, perm = torch.sort(ix, dim=1, stable=True)
-    vals = torch.randn(preds.shape, device=dev, generator=g) * 1e-4
-    vals_s = torch.gather(vals, 1, perm[..., None].long().expand(-1, -1, 3)).contiguous()
-    seg_err = check_segsum(idx_s.contiguous(), vals_s, AE_POINTS, "autoencoder stream", twice=True)
-
-    nn = {"autoencoder_shape": time_nn(preds, decoded, 5),
-          "env_chunk_shape": time_nn(env_preds, env_gt, 2),
-          "probe_chunk_shape": time_nn(probe_preds, probe_gt, 2),
-          "observation_shape": time_nn(obs_preds, obs_gt, 5), "max_abs_err": err}
-    seg = {"autoencoder_stream": {**time_segsum(idx_s.contiguous(), vals_s, AE_POINTS),
-                                  "max_abs_err": seg_err}}
-    print_nn("the autoencoder shape (48, 30000)x6400", nn["autoencoder_shape"])
-    print_nn("the env chunk shape (90, 30000)x30000", nn["env_chunk_shape"])
-    print_nn("the supervised probe chunk shape (45, 30000)x30000", nn["probe_chunk_shape"])
-    print_nn("the observation shape (9, 30000)x30000", nn["observation_shape"])
-    print_segsum(f"the autoencoder stream (48, 30000)->S={AE_POINTS}", seg["autoencoder_stream"])
-    return nn, seg
-
-
-def count_from_zero() -> None:
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        k.launches = 0
-
-
-def read_counts(label: str, expected: dict, held: int, ran: dict | None = None) -> dict:
-    """Check the kernels' launches on the path against ``expected``: those
-    that ``ran`` on the card by a device trace (:func:`device_launches`),
-    else the launch counters."""
-    calls = {k.name: k.launches for k in KERNELS}
-    launches = calls if ran is None else ran
-    seen = "" if ran is None else f" (launch calls {calls})"
-    print(f"  [{label}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-          f"({held / 2**30:.3f} GiB held before the path)  launches {launches}{seen}")
-    check(launches == expected, f"unexpected kernel launches on the {label} path: {launches}")
-    return launches
-
-
-def device_launches(fn):
-    """``fn()``, and the hand-written kernels' launches that ran on the card
-    meanwhile by kernel, from a device trace: a train step replayed from its
-    CUDA graph runs its kernels without calling ``CudaKernel.launch``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return out, {k.name: sum(f"{k.name}_kernel" in n for n in names) for k in KERNELS}
-
-
-def run_path(engine, batch: dict, expected: dict, label: str) -> dict:
-    """1 warm-up + 3 train steps + 1 eval step under a device trace, with
-    the launch counters set to 0 just before; returns the launches by
-    kernel that the trace holds."""
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    recorder.reset()
-
-    def steps():
-        losses, step_ms = [], []
-        for step in range(4):  # 1 warm-up + 3 measured
-            t0 = time.perf_counter()
-            losses.append(float(engine.train_step(batch, engine.step_generator(step))))
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        eval_loss = float(engine.eval_step(batch, engine.step_generator(100)))
-        return losses, step_ms, eval_loss, (time.perf_counter() - t0) * 1e3
-
-    (losses, step_ms, eval_loss, eval_ms), ran = device_launches(steps)
-    print(f"  [{label}] train losses {losses}  eval loss {eval_loss}")
-    print(f"  [{label}] train step ms {[round(t, 3) for t in step_ms]}  median of 3 after warm-up "
-          f"{float(np.median(step_ms[1:])):.3f}  eval step ms {eval_ms:.3f} (under a device trace)")
-    print(f"  [{label}] train steps {recorder.snapshot()['counters']}")
-    launches = read_counts(label, expected, held, ran)
-    check(all(np.isfinite(losses + [eval_loss])), f"non-finite loss on the {label} path")
-    return launches
-
-
-def phase_main_paths(dev: torch.device) -> tuple[dict, dict]:
-    """The four trainers' paths, each through its engine as a user builds
-    it.  Returns the engines with their batches, and the launches by path."""
-    paths, launches = {}, {}
-
-    cfg = VisionConfig(**MAIN, experiments_root=EXPERIMENTS)
-    engine = VisionEngine(cfg, log=False)  # the default device: the card
-    batch = engine.to_device(main_batch(cfg))
-    # 2 NN launches per loss (both directions); per backward 1 segment sum
-    # of the Chamfer loss (the gt cloud is data) and 1 of the sampler
-    none = {k.name: 0 for k in KERNELS}
-    launches["exact"] = run_path(
-        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4}, "exact")
-    paths["exact"] = (engine, batch)
-
-    clustered = {k: v for k, v in MAIN.items() if k != "loss_nn"}  # the default
-    cfg = VisionConfig(**clustered, experiments_root=EXPERIMENTS)
-    check(cfg.loss_nn == "clustered", "the default loss_nn is no longer 'clustered'")
-    engine = VisionEngine(cfg, log=False)
-    batch = engine.to_device(surface_batch(cfg, dev))
-    # 2 chunk tables and 2 pruned scans per loss; per backward one fused
-    # segment sum of the Chamfer loss (only dx) and 1 of the sampler
-    launches["clustered"] = run_path(
-        engine, batch,
-        {**none, SEGSUM.name: 2 * 4, NN_CLUSTER.name: 2 * 5, SELECT_CHUNKS.name: 2 * 5}, "clustered")
-    paths["clustered"] = (engine, batch)
-
-    cfg = TouchConfig(eval=True, experiments_root=EXPERIMENTS)  # batch 64, 4000 samples, exact
-    engine = TouchEngine(cfg, log=False)
-    batch = engine.to_device(touch_batch(cfg))
-    launches["touch"] = run_path(
-        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 2 * 4}, "touch")
-    # 2 eager warm-up steps, then a capture (which replays once), then a replay
-    graph = {k: recorder.snapshot()["counters"].get(k) for k in ("recon.graph_captures", "recon.graph_replays")}
-    check(graph == {"recon.graph_captures": 1, "recon.graph_replays": 1},
-          f"the touch path's steps no longer replay from a CUDA graph: {graph}")
-    paths["touch"] = (engine, batch)
-
-    # the autoencoder over a frozen v_t_g vision model of its own
-    cfg = AutoencoderConfig(**clustered, experiments_root=EXPERIMENTS)
-    check(cfg.loss_nn == "exact", "the autoencoder's default loss_nn is no longer 'exact'")
-    vision = VisionEngine(VisionConfig(**MAIN, experiments_root=EXPERIMENTS), log=False)
-    engine = AutoencoderEngine(cfg, vision_engine=vision, log=False)
-    batch = engine.to_device(main_batch(cfg))
-    # 2 NN launches per loss; per backward one segment sum, into the decoded
-    # cloud: the samples of the frozen mesh carry no gradient, so neither
-    # the Chamfer loss's other sum nor the sampler's backward runs
-    launches["autoencoder"] = run_path(
-        engine, batch, {**none, NN_EXACT.name: 2 * 5, SEGSUM.name: 4}, "autoencoder")
-    check(not vision.model.training, "the autoencoder's step switched the frozen model to train mode")
-    paths["autoencoder"] = (engine, batch)
-    return paths, launches
-
-
-def chart_cache(cloud: np.ndarray, num_actions: int, rng) -> np.ndarray:
-    """A chart cache (num_actions, 4 fingers, 25, xyz | code) in which every
-    grasp holds the three mask codes: two fingers touching (a small sheet
-    about a point of the cloud), one not (collapsed onto its position), one
-    failing."""
-    charts = np.zeros((num_actions, 4, 25, 4), np.float32)
-    for a in range(num_actions):
-        for f, code in enumerate(rng.permutation([0, 1, 2, 2])):
-            pos = cloud[rng.integers(len(cloud))]
-            if code == 2:
-                charts[a, f, :, :3] = pos + rng.normal(size=(25, 3)) * 0.003
-            elif code == 1:
-                charts[a, f, :, :3] = pos
-            charts[a, f, :, 3] = code
-    return charts
-
-
-def write_objects(root: Path, names: list, cfg: VisionConfig, dev: torch.device, seed: int):
-    """Per object, made from ``seed``: a 256x256 image, a surface-like gt
-    cloud of ``number_points`` points and a chart cache of ``num_actions``
-    grasps, in the dataset layout the port reads.  Returns the clouds."""
-    rng = np.random.default_rng(seed)
-    dirs = object_dirs(str(root))
-    for d in dirs.values():
-        Path(d).mkdir(parents=True, exist_ok=True)
-    clouds = surface_clouds(len(names), cfg.number_points,
-                            torch.Generator(device=dev).manual_seed(seed + 4), dev).cpu().numpy()
-    for name, cloud in zip(names, clouds):
-        np.save(Path(dirs["images_colourful"]) / f"{name}.npy",
-                rng.integers(0, 256, size=(256, 256, 3)).astype(np.uint8))
-        np.save(Path(dirs["point_cloud_info"]) / f"{name}.npy", cloud)
-        (Path(dirs["touch_charts"]) / name).mkdir(exist_ok=True)
-        np.save(Path(dirs["touch_charts"]) / name / "touch_charts.npy",
-                chart_cache(cloud, cfg.num_actions, rng))
-    return clouds
-
-
-def write_active_world(root: Path, cfg: PolicyConfig, dev: torch.device) -> None:
-    """The dataset root the policies read: ``env_batch_size`` objects in the
-    splits "test" and "valid", and as many more in "RL_train" beside them,
-    so that a training epoch is two env batches; each object's mesh is a
-    procedural one."""
-    b = cfg.env_batch_size
-    names = [f"object_{i:03d}" for i in range(2 * b)]
-    write_objects(root, names[:b], cfg, dev, seed=0)
-    write_objects(root, names[b:], cfg, dev, seed=1)
-    # each object's mesh, which the env's simulator would load at a grasp
-    # the chart cache lacks; the cache answers every signal, so no mesh is
-    # loaded and no grasp is simulated
-    for i, name in enumerate(names):
-        mesh = random_object(i)
-        np.save(Path(object_dirs(str(root))["object_info"]) / f"{name}_verts.npy", mesh.verts)
-        np.save(Path(object_dirs(str(root))["object_info"]) / f"{name}_faces.npy", mesh.faces)
-    np.save(root / "data_split.npy", {"test": names[:b], "valid": names[:b], "RL_train": names})
-
-
-def phase_env(dev: torch.device) -> tuple[dict, ActiveTouchEnv]:
-    """The active environment at the default policy configuration with the
-    latent observation, on a full-width frozen vision model and autoencoder
-    from the seed, through the policy engines as a user runs them.  Returns
-    the launches and the env."""
-    cfg = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
-    root = Path(EXPERIMENTS) / "active_world"
-    write_active_world(root, cfg, dev)
-    env = ActiveTouchEnv(cfg, auto_model=build_autoencoder(AutoencoderConfig()),
-                         chart_cache_root=str(root))
-    batch = list(Loader(ActiveDataset(str(root), "test", number_points=cfg.number_points,
-                                      env_batch_size=cfg.env_batch_size),
-                        cfg.env_batch_size, shuffle=False))[0]
-    b = cfg.env_batch_size
-    chunks = -(-cfg.num_actions // ENV_CHUNK)
-
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    t0 = time.perf_counter()
-    obs = env.reset(batch)
-    reset_ms = (time.perf_counter() - t0) * 1e3
-    scores, greedy_ms, bank = [obs["score"]], [], []
-    for _ in range(cfg.budget):  # every grasp scored, each step
-        latent = obs["latent"]
-        t0 = time.perf_counter()
-        actions, obs, _, done = env.best_step()
-        greedy_ms.append((time.perf_counter() - t0) * 1e3)
-        scores.append(obs["score"])
-        bank += list(zip(latent, actions))
-    check(done, "the greedy episode did not end at the budget")
-    t0 = time.perf_counter()
-    even = EvenEngine(dataclasses.replace(cfg, exp_id="chip_smoke_even"), str(root), env=env)
-    even_result = even.evaluate("test", max_batches=1)
-    even_ms = (time.perf_counter() - t0) * 1e3
-    nearest = NearestNeighborEngine(dataclasses.replace(cfg, exp_id="chip_smoke_nn"), str(root), env=env)
-    nearest.latents = [latent for latent, _ in bank]
-    nearest.actions = [int(a) for _, a in bank]
-    t0 = time.perf_counter()
-    nearest_result = nearest.evaluate("test", max_batches=1)
-    nearest_ms = (time.perf_counter() - t0) * 1e3
-
-    # each observation and each chunk of candidates is one exact Chamfer
-    # distance: 2 NN launches, and no backward
-    observations = (1 + cfg.budget) * 3  # the greedy, even and nearest episodes
-    expected = {k.name: 0 for k in KERNELS}
-    expected[NN_EXACT.name] = 2 * (observations + cfg.budget * chunks)
-    greedy = np.stack(scores, 1)
-    step_ms = float(np.median(greedy_ms))
-    print(f"  [env] greedy episode, % of the first score left after each step: "
-          f"{(100 * greedy.mean(0) / greedy[:, 0].mean()).round(3).tolist()}")
-    print(f"  [env] reset {reset_ms:.3f} ms; greedy step ms {[round(t, 3) for t in greedy_ms]}, median "
-          f"{step_ms:.3f} ({b} x {cfg.num_actions} candidates in {chunks} chunks of {ENV_CHUNK}, "
-          f"{b * cfg.num_actions / step_ms * 1e3:.1f} candidates scored a second)")
-    print(f"  [env] even rollout {even_ms:.3f} ms ({even_result.pct_cd_remaining:.3f}% left), "
-          f"nearest-neighbour rollout {nearest_ms:.3f} ms ({nearest_result.pct_cd_remaining:.3f}% left) "
-          f"from a bank of {len(bank)} latents")
-    launches = read_counts("env", expected, held)
-    finite = [greedy, even_result.scores, nearest_result.scores]
-    check(all(np.isfinite(a).all() for a in finite), "non-finite score on the env path")
-
-    check_chunk_against_plain(env, batch, dev, "env")
-    env.reset(batch)
-    return launches, env
-
-
-def check_chunk_against_plain(env: ActiveTouchEnv, batch: dict, dev: torch.device, label: str) -> None:
-    """One chunk of candidate scores with the same draws through K1 and
-    through the plain version: the same scores (K1 is bit-exact)."""
-    cfg, b = env.config, env.config.env_batch_size
-    env.reset(batch)
-    cands = np.tile(np.arange(ENV_CHUNK), (b, 1))
-    draws = draw_sample_noise(b * ENV_CHUNK, REPEAT * cfg.number_points,
-                              torch.Generator(device=dev).manual_seed(6), dev)
-    before = NN_EXACT.launches
-    on_kernels = env.score_candidates(cands, draws=[draws])
-    check(NN_EXACT.launches == before + 2, f"{label}: a chunk of candidate scores is not 2 NN launches")
-    chamfer_module.min_dists = min_dists_plain
-    try:
-        on_plain = env.score_candidates(cands, draws=[draws])
-    finally:
-        chamfer_module.min_dists = min_dists
-    rel = float(np.max(np.abs(on_kernels - on_plain) / np.abs(on_plain)))
-    print(f"  [{label}] one chunk of {b} x {ENV_CHUNK} candidate scores: kernels against the plain "
-          f"versions, largest relative difference {rel:.3e}")
-    check(np.isfinite(on_kernels).all() and rel <= 1e-6, f"{label} candidate scores: kernels != plain")
-
-
-class Timed:
-    """Replaces ``obj.name`` with a wrapper that records each call's
-    host-clock time in ms (the wrapped calls return host values, so each
-    ends with the card's work done); the original comes back on exit."""
-
-    def __init__(self, obj, name: str):
-        self.obj, self.name, self.ms = obj, name, []
-
-    def __enter__(self):
-        fn = getattr(self.obj, self.name)
-        self.own = vars(self.obj).get(self.name)  # a module's function, an instance's attribute
-
-        def timed(*args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            self.ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        setattr(self.obj, self.name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        if self.own is None:
-            delattr(self.obj, self.name)
-        else:
-            setattr(self.obj, self.name, self.own)
-
-    def median(self) -> float:
-        return float(np.median(self.ms)) if self.ms else float("nan")
-
-
-class Bf16OnCpu(torch.autograd.Function):
-    """The card's GCN product (``models/gcn.py::_Bf16Matmul``) on the CPU:
-    the operands and the incoming gradient rounded to bf16, the products
-    summed in float32."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        a16, b16 = a.bfloat16().float(), b.bfloat16().float()
-        ctx.save_for_backward(a16, b16)
-        return a16 @ b16
-
-    @staticmethod
-    def backward(ctx, g):
-        a16, b16 = ctx.saved_tensors
-        g16 = g.bfloat16().float()
-        return g16 @ b16.T, a16.T @ g16
-
-
-def bf16_on_cpu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``models/gcn.py::_mxu_matmul``'s card path on the CPU: its fold of
-    the batch, with Bf16OnCpu as the 2-D product."""
-    return gcn_module._folded_matmul(a, b, Bf16OnCpu.apply)
-
-
-def check_update_against_cpu(engine: DDQNEngine, label: str, tol: dict, cpu_matmul=None) -> None:
-    """One DDQN update on the card against the same update on the CPU, from
-    the same weights, optimizer state and replay batch: the loss, the
-    clamped gradients (the norm of the difference over the norm, of all
-    parameters and of the worst tensor), and the values of the two updated
-    nets on the batch, computed on the CPU, each within ``tol`` (a limit of
-    None prints that number and holds nothing to it); the
-    parameters after the step within 2 x lr of each other (an Adam step
-    moves a parameter by about lr, whatever the size of its gradient).
-    ``cpu_matmul`` replaces the GCN's products in the CPU's update."""
-    cpu = copy.copy(engine)
-    cpu.device = torch.device("cpu")
-    cpu.model = copy.deepcopy(engine.model).cpu()
-    cpu.target_model = copy.deepcopy(engine.target_model).cpu()
-    cpu.optimizer = torch.optim.Adam(cpu.model.parameters(), lr=engine.config.lr)
-    # a copy: loading keeps a tensor already on the CPU, and the card's
-    # step would then move the CPU optimizer's state too
-    cpu.optimizer.load_state_dict(copy.deepcopy(engine.optimizer.state_dict()))
-    cpu.adj = None if engine.adj is None else engine.adj.cpu()
-    batch = engine.replay.sample()
-    loss_card = float(engine.update_on(batch))
-    plain_matmul = gcn_module._mxu_matmul
-    gcn_module._mxu_matmul = cpu_matmul or plain_matmul
-    try:
-        loss_cpu = float(cpu.update_on(batch))
-    finally:
-        gcn_module._mxu_matmul = plain_matmul
-    names = [n for n, _ in cpu.model.named_parameters()]
-    grads = [(a.grad.cpu(), b.grad) for a, b in zip(engine.model.parameters(), cpu.model.parameters())]
-    ratios = {n: float((a - b).norm() / (b.norm() + 1e-30)) for n, (a, b) in zip(names, grads)}
-    worst = max(ratios, key=ratios.get)
-    diff = torch.cat([(a - b).flatten() for a, b in grads])
-    overall = float(diff.norm() / torch.cat([b.flatten() for _, b in grads]).norm())
-    moved = max(float((a.detach().cpu() - b.detach()).abs().max())
-                for a, b in zip(engine.model.parameters(), cpu.model.parameters()))
-    with torch.no_grad():
-        q_card = copy.deepcopy(engine.model).cpu()(*cpu._inputs(batch))
-        q_cpu = cpu.model(*cpu._inputs(batch))
-    q_err = float((q_card - q_cpu).abs().max() / q_cpu.abs().max())
-    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    against = "the card's bf16 products" if cpu_matmul else "float32"
-    held = "" if tol["grads"] is not None else " (printed, not held)"
-    print(f"  [{label}] one update, card against CPU ({against}): loss {loss_card} / {loss_cpu} "
-          f"(rel {rel:.2e}); clamped gradients{held}, difference over norm: all {overall:.2e}, worst "
-          f"tensor {worst} {ratios[worst]:.2e}; the updated nets' values on the batch "
-          f"{q_err:.2e} of the largest; largest parameter difference after the step {moved:.2e} "
-          f"(lr {engine.config.lr})")
-    within = lambda x, key: tol[key] is None or x <= tol[key]  # noqa: E731
-    check(within(rel, "loss") and within(overall, "grads") and within(ratios[worst], "tensor")
-          and within(q_err, "values"), f"{label}: the update on the card != on the CPU ({against})")
-    check(moved <= 2 * engine.config.lr, f"{label}: the parameters after the update differ")
-
-
-def phase_policies(dev: torch.device, env: ActiveTouchEnv) -> tuple[dict, object]:
-    """The learned policies at the default policy configuration, through
-    their engines on the env of phase_env: DDQN over the latent (a 300 x 5
-    value net) and over the mesh (a 100 x 5 GCN over the 2036-vertex atlas)
-    each train one epoch of two env batches (10 env steps: updates from the
-    7th, at the default burn-in of 20 transitions and batch 16) and evaluate
-    one batch; the supervised policy trains its nets of steps 0 and 1 at 5
-    probes and evaluates one batch.  Returns the launches by path and one
-    DDQN episode to profile."""
-    root = str(Path(EXPERIMENTS) / "active_world")
-    base = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
-    b, budget = base.env_batch_size, base.budget
-    batch = list(Loader(ActiveDataset(root, "test", number_points=base.number_points,
-                                      env_batch_size=b), b, shuffle=False))[0]
-    launches, episode = {}, None
-    none = {k.name: 0 for k in KERNELS}
-    # float32 products on both sides, except the GCN's: bf16 operands on the
-    # card.  A gradient carries the residual q - target, a small difference
-    # of values of order 1, where bf16's relative error in q grows.  On an
-    # H100, against float32 on the CPU: the loss 1.8e-3 apart, the clamped
-    # gradients 2.5e-1 of their norm (5.1e-1 in one tensor), the updated
-    # nets' values 1.5e-2; so that comparison holds only the loss and the
-    # values, at bf16's size, and prints the gradients' differences.  The
-    # gradient check is the one against the card's own bf16 rounding on the
-    # CPU (Bf16OnCpu): 2.6e-4, 1.2e-2 (1.7e-2) and 1.7e-4, from the order
-    # of the sums, the sine's last bits and the bf16 roundings they flip
-    float32_only = [(None, dict(loss=1e-4, grads=1e-4, tensor=1e-4, values=1e-4))]
-    with_bf16 = [(None, dict(loss=2e-2, grads=None, tensor=None, values=5e-2)),
-                 (bf16_on_cpu, dict(loss=2e-3, grads=5e-2, tensor=1e-1, values=2e-3))]
-    for label, extra, comparisons in (
-        ("ddqn latent", dict(use_latent=True), float32_only),
-        ("ddqn mesh", dict(use_latent=False, use_recon=True), with_bf16),
-    ):
-        cfg = dataclasses.replace(base, exp_id=label.replace(" ", "_"), **extra)
-        held = torch.cuda.memory_allocated()
-        count_from_zero()
-        engine = DDQNEngine(cfg, root, env=env)  # the default device: the card
-        check(not engine.ckpt.exists("recent"), f"{label}: a checkpoint was there before")
-        with Timed(env, "step") as steps, Timed(engine, "update_parameters") as updates:
-            stats = engine.train_epoch()
-        result = engine.evaluate("test", max_batches=1)
-        # 2 NN launches an observation: 2 train episodes and 1 eval episode
-        # of 1 + budget observations; no candidates, no backward
-        launches[label] = read_counts(label, {**none, NN_EXACT.name: 2 * 3 * (1 + budget)}, held)
-        # the first update comes at the env step whose transitions reach
-        # max(burn_in, batch): the 7th at 3 a step
-        first = -(-max(cfg.burn_in, cfg.train_batch_size) // b)
-        updated = updates.ms[first - 1:]
-        print(f"  [{label}] {cfg.hidden_dim} x {cfg.layers} net: train epoch loss {stats['loss']} "
-              f"reward {stats['reward']} epsilon {stats['epsilon']}; eval "
-              f"{result.pct_cd_remaining:.3f}% of the first score left")
-        print(f"  [{label}] env step ms median {steps.median():.3f} of {len(steps.ms)}; update ms "
-              f"median {float(np.median(updated)):.3f} of {len(updated)} (replay sample, update, loss "
-              f"to the host)")
-        check(first == 7 and engine.replay.count_seen == 2 * budget * b,
-              f"{label}: not the expected updates")
-        check(all(np.isfinite([stats["loss"], stats["reward"]])) and np.isfinite(result.scores).all(),
-              f"{label}: non-finite loss, reward or score")
-        again = DDQNEngine(cfg, root, env=env)
-        same = all(torch.equal(x, y) for x, y in zip(
-            again.target_model.state_dict().values(), engine.target_model.state_dict().values()))
-        check(same and (again.epsilon, again.total_steps, again.episodes)
-              == (engine.epsilon, engine.total_steps, engine.episodes)
-              and all(np.array_equal(again.replay.data[k], v) for k, v in engine.replay.data.items()),
-              f"{label}: the checkpoint does not restore the engine")
-        print(f"  [{label}] checkpoint restored: epsilon {again.epsilon}, {again.total_steps} steps, "
-              f"{again.episodes} episodes, {again.replay.count_seen} transitions")
-        for cpu_matmul, tol in comparisons:
-            check_update_against_cpu(engine, label, tol, cpu_matmul)
-        if episode is None:
-            episode = ddqn_episode(engine, env, batch)
-
-    cfg = dataclasses.replace(base, exp_id="supervised")
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    engine = SupervisedEngine(cfg, root, env=env)
-    levels = []
-    for step in (0, 1):
-        t0 = time.perf_counter()
-        loss = engine.train_step_level(step)
-        levels.append((time.perf_counter() - t0) * 1e3)
-        check(np.isfinite(loss), f"supervised: non-finite loss at step {step}")
-        print(f"  [supervised] level {step}: loss {loss} in {levels[-1]:.3f} ms")
-    result = engine.evaluate("test", max_batches=1)
-    check(np.isfinite(result.scores).all(), "supervised: non-finite score")
-    # per level and train batch: the observations to the step, then one
-    # chunk of 5 probes; then 1 eval episode
-    obs, chunks = 2 * (1 + 2) + (1 + budget), 2 * 2
-    launches["supervised"] = read_counts("supervised", {**none, NN_EXACT.name: 2 * (obs + chunks)}, held)
-    again = SupervisedEngine(cfg, root, env=env)
-    check(all(torch.equal(x, y) for n1, n2 in zip(again.nets, engine.nets)
-              for x, y in zip(n1.state_dict().values(), n2.state_dict().values())),
-          "supervised: the checkpoint does not restore the nets")
-    print(f"  [supervised] eval {result.pct_cd_remaining:.3f}% of the first score left; "
-          f"checkpoint of {len(again.nets)} nets restored")
-    return launches, episode
-
-
-def ddqn_episode(engine: DDQNEngine, env: ActiveTouchEnv, batch: dict):
-    """One DDQN training episode, as ``train_epoch`` runs it, without the
-    epoch's checkpoint."""
-    def run():
-        obs = env.reset(batch)
-        for _ in range(engine.config.budget):
-            actions = engine.get_action(obs)
-            nxt, reward, _ = env.step(actions)
-            engine.replay.push(actions, obs, nxt, reward)
-            engine.update_parameters()
-            obs = nxt
-    return run
-
-
-def write_training_world(root: Path, dev: torch.device) -> None:
-    """A dataset for the trainers, in the JAX package's layout: 32 objects
-    in "recon_train" and 8 in "valid" (two training batches of the vision
-    trainer's 16; its validation draws each object 5 times), each with 2
-    grasps of 4 touching fingers (a 121x121 gel image, a local cloud of
-    2000 to 6000 points, the sensor's frame): 4 training batches of the
-    touch trainer's 64 and one validation batch."""
-    names = [f"train_{i:03d}" for i in range(32)] + [f"valid_{i:03d}" for i in range(8)]
-    clouds = write_objects(root, names, VisionConfig(), dev, seed=2)
-    rng = np.random.default_rng(5)
-    grasps = Path(object_dirs(str(root))["grasp_info"])
-    for name, cloud in zip(names, clouds):
-        for grasp in rng.choice(50, size=2, replace=False):
-            gdir = grasps / name / str(grasp)
-            gdir.mkdir(parents=True)
-            for finger in range(4):
-                pos = cloud[rng.integers(len(cloud))]
-                np.save(gdir / f"{finger}_touch.npy",
-                        rng.integers(0, 256, size=(121, 121, 3)).astype(np.uint8))
-                np.save(gdir / f"{finger}_points.npy",
-                        (rng.normal(size=(rng.integers(2000, 6000), 3)) * 0.003).astype(np.float32))
-                np.save(gdir / f"{finger}_ref_frame.npy",
-                        {"pos": pos, "rot": np.linalg.qr(rng.normal(size=(3, 3)))[0]})
-    np.save(root / "data_split.npy", {"recon_train": names[:32], "valid": names[32:]})
-
-
-def phase_trainers_from_disk(dev: torch.device) -> dict:
-    """One ``fit`` epoch of ``VisionEngine(VisionConfig())`` (the clustered
-    loss) and of ``TouchEngine(TouchConfig())`` from loaders over the
-    datasets of the files written by write_training_world, as the JAX
-    package's command line feeds them.  Returns the launches by path."""
-    root = Path(EXPERIMENTS) / "training_world"
-    t0 = time.perf_counter()
-    write_training_world(root, dev)
-    print(f"  training dataset written in {(time.perf_counter() - t0) * 1e3:.0f} ms")
-    none = {k.name: 0 for k in KERNELS}
-    launches = {}
-
-    cfg = VisionConfig(epochs=1, exp_id="vision_from_disk", experiments_root=EXPERIMENTS)
-
-    def vision(split: str, shuffle: bool):
-        ds = VisionDataset(str(root), split, use_img=cfg.use_img, use_touch=cfg.use_touch,
-                           finger=cfg.finger, num_grasps=cfg.num_grasps,
-                           number_points=cfg.number_points, eval_mode=cfg.eval, seed=cfg.seed)
-        return lambda: Loader(ds, batch_size=cfg.batch_size, shuffle=shuffle)
-
-    engine = VisionEngine(cfg)
-    train, valid = vision("recon_train", True), vision("valid", False)
-    steps = (len(train()), len(valid()))
-    # per train step 2 chunk tables, 2 pruned scans and 2 segment sums (the
-    # Chamfer loss's fused stream, the sampler's); per eval step the first two
-    per_step = {NN_CLUSTER.name: 2, SELECT_CHUNKS.name: 2}
-    launches["vision from disk"] = fit_epoch(engine, train, valid, "vision from disk", {
-        **none, **{k: v * sum(steps) for k, v in per_step.items()}, SEGSUM.name: 2 * steps[0]}, steps)
-
-    cfg = TouchConfig(epochs=1, exp_id="touch_from_disk", experiments_root=EXPERIMENTS)
-
-    def touch(split: str, shuffle: bool):
-        ds = TouchDataset(str(root), split, num_samples=cfg.num_samples)
-        return lambda: Loader(ds, batch_size=cfg.batch_size, shuffle=shuffle)
-
-    engine = TouchEngine(cfg)
-    train, valid = touch("recon_train", True), touch("valid", False)
-    steps = (len(train()), len(valid()))
-    launches["touch from disk"] = fit_epoch(engine, train, valid, "touch from disk", {
-        **none, NN_EXACT.name: 2 * sum(steps), SEGSUM.name: 2 * steps[0]}, steps)
-    return launches
-
-
-def fit_epoch(engine, train, valid, label: str, expected: dict, steps: tuple) -> dict:
-    check(steps[0] >= 2 and steps[1] >= 1, f"{label}: the dataset gives {steps} batches")
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    t0 = time.perf_counter()
-    best, ran = device_launches(lambda: engine.fit(train, valid))
-    epoch_ms = (time.perf_counter() - t0) * 1e3
-    print(f"  [{label}] one fit epoch of {steps[0]} train and {steps[1]} valid batches: "
-          f"{epoch_ms:.3f} ms under a device trace, valid loss {best}")
-    launches = read_counts(label, expected, held, ran)
-    check(np.isfinite(best), f"{label}: non-finite validation loss")
-    check(engine.ckpt.exists("best") and engine.ckpt.exists("recent"),
-          f"{label}: no best or recent checkpoint")
-    return launches
-
-
-class DeviceTimed:
-    """Replaces ``obj.name`` with a wrapper that records a pair of CUDA
-    events on the current stream around each call.  ``busy_ms`` sums the
-    intervals from event ``start``: the card's time from the first launch of
-    a call to the end of its last, in which any wait of the card for the
-    host inside the call counts as busy, so it bounds the busy time from
-    above.  The original comes back on exit."""
-
-    def __init__(self, obj, name: str):
-        self.obj, self.name, self.events = obj, name, []
-
-    def __enter__(self):
-        fn = getattr(self.obj, self.name)
-
-        def timed(*args, **kw):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            self.events.append((start, end))
-            return out
-
-        setattr(self.obj, self.name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        delattr(self.obj, self.name)
-
-    def busy_ms(self, start: int = 0, stop: int | None = None) -> float:
-        torch.cuda.synchronize()
-        return float(sum(a.elapsed_time(b) for a, b in self.events[start:stop]))
-
-
-def check_generated_layout(root: Path, names: list, num_actions: int, num_points: int) -> dict:
-    """Every file of the dataset layout for each generated object, and its
-    chart cache: shape (actions, 4, 25, 4), finite, one mask code in {0, 1,
-    2} a slot, and that code the one the slot's files give: 2 where
-    ``<finger>_touch.npy`` exists (with its ``_points.npy`` and
-    ``_ref_frame.npy``), 1 where only ``_ref_frame.npy`` exists, else 0.
-    Returns the count of slots by code."""
-    dirs = {k: Path(v) for k, v in object_dirs(str(root)).items()}
-    split = np.load(root / "data_split.npy", allow_pickle=True).item()
-    check(set(split) == set(SPLIT_NAMES) and sorted(sum(split.values(), [])) == names,
-          f"generated data_split.npy: {split}")
-    by_code = {0: 0, 1: 0, 2: 0}
-    for n in names:
-        for suffix in ("_verts.npy", "_faces.npy", ".obj"):
-            check((dirs["object_info"] / f"{n}{suffix}").exists(), f"generated: no {n}{suffix}")
-        cloud = np.load(dirs["point_cloud_info"] / f"{n}.npy")
-        check(cloud.shape == (num_points, 3) and cloud.dtype == np.float32 and np.isfinite(cloud).all(),
-              f"generated: point cloud of {n} is {cloud.shape} {cloud.dtype}")
-        img = np.load(dirs["images_colourful"] / f"{n}.npy")
-        check(img.shape == (256, 256, 3) and img.dtype == np.uint8 and img.min() < 255,
-              f"generated: image of {n} is {img.shape} {img.dtype} or blank")
-        charts = np.load(dirs["touch_charts"] / n / "touch_charts.npy")
-        check(charts.shape == (num_actions, 4, 25, 4) and charts.dtype == np.float32
-              and np.isfinite(charts).all(), f"generated: chart cache of {n} is {charts.shape}")
-        codes = charts[..., 3]
-        check(set(np.unique(codes)) <= {0.0, 1.0, 2.0} and (codes == codes[..., :1]).all(),
-              f"generated: mask codes of {n}: {np.unique(codes)}")
-        for a in range(num_actions):
-            gdir = dirs["grasp_info"] / n / str(a)
-            check(gdir.is_dir(), f"generated: no {gdir}")
-            for f in range(4):
-                touch = (gdir / f"{f}_touch.npy").exists()
-                ref = (gdir / f"{f}_ref_frame.npy").exists()
-                points = (gdir / f"{f}_points.npy").exists()
-                want = 2 if touch else 1 if ref else 0
-                check(codes[a, f, 0] == want and points == touch and (ref or not touch),
-                      f"generated: {n} grasp {a} finger {f}: code {codes[a, f, 0]}, files "
-                      f"touch {touch} ref {ref} points {points}")
-                by_code[want] += 1
-                if touch:
-                    image = np.load(gdir / f"{f}_touch.npy")
-                    cloud = np.load(gdir / f"{f}_points.npy")
-                    check(image.shape == (121, 121, 3) and image.dtype == np.uint8
-                          and cloud.ndim == 2 and 0 < len(cloud) <= 4096,
-                          f"generated: {n} grasp {a} finger {f}: {image.shape} {cloud.shape}")
-    return by_code
-
-
-def k3_on_generated(root: Path, names: list, dev: torch.device, synthetic: list) -> list:
-    """K3's nearest neighbours against K1's on the generated objects: each
-    30k-point cloud against a second 30k-point draw of the same surface
-    (``extract_surface_points`` with another generator), through the sort,
-    padding and selection of ``chamfer_clustered_tiled_gt`` as the vision
-    step calls it (the draw in the predictions' place).  Prints the share of
-    queries whose clustered distance is the exact one, both ways, beside the
-    synthetic clouds' of phase 3, and the clustered Chamfer distance against
-    the exact one; a clustered distance below the exact one fails."""
-    dirs = object_dirs(str(root))
-    y = np.stack([np.load(Path(dirs["point_cloud_info"]) / f"{n}.npy") for n in names])
-    x = []
-    for n in names:
-        base = Path(dirs["object_info"]) / n
-        x.append(generation.extract_surface_points(
-            np.load(f"{base}_verts.npy"), np.load(f"{base}_faces.npy"), dim=GEN_DIM,
-            num_points=y.shape[1], rng=np.random.default_rng(1)))
-    x, y = torch.from_numpy(np.stack(x)).to(dev), torch.from_numpy(y).to(dev)
-    ys1, yperm1 = cluster._sort_by_morton(y)
-    (xs, ys, _, _, _, _), dx, dy = cluster._pair_min_dists_sorted(
-        x, ys1, CHUNK, CHUNKS_PER_TILE, y_sorted=(ys1, yperm1), y_distinct=y.shape[0])
-    ex, _ = min_dists(xs, ys)
-    ey, _ = min_dists(ys, xs)
-    check(bool((dx >= ex).all() and (dy >= ey).all()),
-          "clustered distance below the exact one on the generated clouds")
-    agree = [float((dx == ex).float().mean()), float((dy == ey).float().mean())]
-    with torch.no_grad():
-        clustered = chamfer_clustered_tiled_gt(x, y, 1)
-        exact = chamfer_distance(x, y)
-    print(f"  K3 against K1 on {len(names)} generated objects ({y.shape[1]} points against a second "
-          f"draw of the same surface): neighbour agreement {agree[0]:.6f} (draw -> cloud), "
-          f"{agree[1]:.6f} (cloud -> draw); on the synthetic clouds of phase 3 "
-          f"{synthetic[0]:.6f} / {synthetic[1]:.6f}; Chamfer distance per object, clustered "
-          f"{clustered.tolist()}, exact {exact.tolist()}")
-    return agree
-
-
-def phase_generation(dev: torch.device, synthetic_agreement: list) -> tuple:
-    """The port's ``generate_dataset`` of 8 procedural objects (version 3,
-    50 actions, 128^3 voxels, 30k points) with each stage's wall time, then
-    ``make_touch_charts`` over ``TouchEngine(TouchConfig())`` on the card,
-    with the launch counters from 0 (no hand-written kernel runs there), and
-    again under the profiler for the card's busy time; the layout and the
-    charts' codes checked against the files; K3 against K1 on the clouds.
-    Returns the launches, the touch engine, the root, the names and K3's
-    agreement both ways."""
-    root = Path(EXPERIMENTS) / "generated_world"
-    stages = ("save_object_info", "save_point_info", "save_simulation", "make_data_split")
-    with contextlib.ExitStack() as stack:
-        timers = [stack.enter_context(Timed(generation, name)) for name in stages]
-        t0 = time.perf_counter()
-        generation.generate_dataset(str(root), GENERATED_OBJECTS, seed=0, num_actions=GEN_ACTIONS,
-                                    point_dim=GEN_DIM, num_points=GEN_POINTS, version=3)
-        total_ms = (time.perf_counter() - t0) * 1e3
-    names = [f"{i:06d}" for i in range(GENERATED_OBJECTS)]
-    print(f"  [generation] generate_dataset of {GENERATED_OBJECTS} objects, {GEN_ACTIONS} actions: "
-          f"{total_ms:.1f} ms; by stage, ms: "
-          + ", ".join(f"{name} {t.ms[0]:.1f}" for name, t in zip(stages, timers))
-          + f"; os.cpu_count() {os.cpu_count()}, SimConfig().workers {SimConfig().workers}")
-
-    engine = TouchEngine(TouchConfig(experiments_root=EXPERIMENTS), log=False)
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    t0 = time.perf_counter()
-    generation.make_touch_charts(str(root), engine, num_actions=GEN_ACTIONS)
-    torch.cuda.synchronize()
-    charts_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counts("touch charts", {k.name: 0 for k in KERNELS}, held)
-    first = {n: np.load(Path(object_dirs(str(root))["touch_charts"]) / n / "touch_charts.npy")
-             for n in names}
-    by_code = check_generated_layout(root, names, GEN_ACTIONS, GEN_POINTS)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    shutil.rmtree(object_dirs(str(root))["touch_charts"])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generation.make_touch_charts(str(root), engine, num_actions=GEN_ACTIONS)
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    again = max(float(np.abs(np.load(Path(object_dirs(str(root))["touch_charts"]) / n
-                                      / "touch_charts.npy") - first[n]).max()) for n in names)
-    print(f"  [touch charts] make_touch_charts over {GENERATED_OBJECTS} objects ({by_code[2]} touching "
-          f"slots through the touch model, {by_code[1]} grasps without touch, {by_code[0]} failed): "
-          f"{charts_ms:.3f} ms; under the profiler {profiled_ms:.3f} ms with the card busy "
-          f"{busy_ms:.3f} ms (idle share {1 - busy_ms / profiled_ms:.3f}); the second pass differs "
-          f"from the first by at most {again:.3e}")
-    agree = k3_on_generated(root, names, dev, synthetic_agreement)
-    return launches, engine, root, names, agree
-
-
-def phase_env_live(dev: torch.device, root: Path, touch_engine: TouchEngine) -> dict:
-    """The env at the default policy configuration with the latent
-    observation on the generated world, with its default simulator and no
-    chart cache: a greedy episode through ``best_step``, whose first step
-    grasps every (object, action) pair live.  The host's time inside
-    ``sampler.sample``, the touch model's device time, and the card's busy
-    time by CUDA events around the env's device calls (an upper bound), each
-    step; K1's launches equal to the same episode on an env that reads the
-    chart cache of phase_generation; one chunk through K1 against the plain
-    versions; the live signals against the cached ones for every (object,
-    action): equal codes, equal positions of code-1 slots, code-2 charts
-    within LIVE_CHART_TOL.  Returns the launches."""
-    cfg = PolicyConfig(use_latent=True, eval=True, experiments_root=EXPERIMENTS)
-    b, budget = cfg.env_batch_size, cfg.budget
-    dataset = ActiveDataset(str(root), LIVE_SPLIT, number_points=cfg.number_points, env_batch_size=b)
-    check(len(dataset) == b, f"the generated split {LIVE_SPLIT} holds {len(dataset)} objects, not {b}")
-    batch = list(Loader(dataset, b, shuffle=False))[0]
-    auto = build_autoencoder(AutoencoderConfig())
-    env = ActiveTouchEnv(cfg, touch_model=copy.deepcopy(touch_engine.model), auto_model=auto)
-    check(isinstance(env.sampler, Sampler), "the env did not build its own simulator")
-    chunks = -(-cfg.num_actions // ENV_CHUNK)
-    expected = {k.name: 0 for k in KERNELS}
-    expected[NN_EXACT.name] = 2 * ((1 + budget) + budget * chunks)
-
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    with Timed(env.sampler, "load_objects") as loads, Timed(env.sampler, "sample") as samples, \
-            Timed(env, "_simulate_and_cache") as simulate, \
-            DeviceTimed(env, "_predict_touch") as touch_t, DeviceTimed(env, "_score_chunk") as score_t, \
-            DeviceTimed(env, "_reconstruct") as obs_t:
-        t0 = time.perf_counter()
-        obs = env.reset(batch)
-        reset_ms = (time.perf_counter() - t0) * 1e3
-        scores, marks, step_ms = [obs["score"]], [], []
-        for _ in range(budget):
-            marks.append((len(samples.ms), len(simulate.ms), len(touch_t.events),
-                          len(score_t.events), len(obs_t.events)))
-            t0 = time.perf_counter()
-            _, obs, _, done = env.best_step()
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            scores.append(obs["score"])
-        marks.append((len(samples.ms), len(simulate.ms), len(touch_t.events),
-                      len(score_t.events), len(obs_t.events)))
-    check(done, "the live greedy episode did not end at the budget")
-    launches = read_counts("env live", expected, held)
-    check(all(np.isfinite(x).all() for x in scores), "non-finite score on the live env path")
-    keys = [(str(n), a) for n in batch["names"] for a in range(cfg.num_actions)]
-    check(all(k in env._sig_cache for k in keys), "the first greedy step did not grasp every pair")
-    check(len(loads.ms) == 1, f"the live episode loaded its objects {len(loads.ms)} times, not once")
-    print(f"  [env live] reset {reset_ms:.3f} ms; load_objects at the first miss {sum(loads.ms):.3f} ms "
-          f"({b} objects); greedy step ms {[round(t, 3) for t in step_ms]}")
-    for i, ms in enumerate(step_ms):
-        s0, m0, p0, c0, o0 = marks[i]
-        s1, m1, p1, c1, o1 = marks[i + 1]
-        sample_ms = sum(samples.ms[s0:s1])
-        touch_ms = touch_t.busy_ms(p0, p1)
-        busy = touch_ms + score_t.busy_ms(c0, c1) + obs_t.busy_ms(o0, o1)
-        print(f"  [env live] step {i}: {ms:.3f} ms; {s1 - s0} sampler.sample calls {sample_ms:.3f} ms on "
-              f"the host ({100 * sample_ms / ms:.1f}%), _simulate_and_cache {sum(simulate.ms[m0:m1]):.3f} "
-              f"ms; touch model on the card {touch_ms:.3f} ms; card busy (events) {busy:.3f} ms, idle "
-              f"share at least {1 - busy / ms:.3f}")
-    check_chunk_against_plain(env, batch, dev, "env live")
-
-    cached = ActiveTouchEnv(cfg, touch_model=copy.deepcopy(touch_engine.model), auto_model=auto,
-                            chart_cache_root=str(root))
-    count_from_zero()
-    t0 = time.perf_counter()
-    cached.reset(batch)
-    cached_steps = []
-    for _ in range(budget):
-        t1 = time.perf_counter()
-        cached.best_step()
-        cached_steps.append((time.perf_counter() - t1) * 1e3)
-    cached_ms = (time.perf_counter() - t0) * 1e3
-    cached_launches = {k.name: k.launches for k in KERNELS}
-    print(f"  [env cached] the same episode on the chart cache: {cached_ms:.3f} ms, greedy step ms "
-          f"{[round(t, 3) for t in cached_steps]}; launches {cached_launches}")
-    check(cached_launches == launches, "the live episode launches K1 otherwise than the cached one")
-
-    worst, n_touch, n_free = 0.0, 0, 0
-    for key in keys:
-        c_live, codes_live, pos_live = env._sig_cache[key]
-        c_cache, codes_cache, pos_cache = cached._sig_cache[key]
-        check(np.array_equal(codes_live, codes_cache), f"live and cached codes differ at {key}")
-        free, touch = codes_live == 1, codes_live == 2
-        check(np.array_equal(pos_live[free], pos_cache[free]),
-              f"live and cached sensor positions differ at {key}")
-        if touch.any():
-            worst = max(worst, float(np.abs(c_live[touch] - c_cache[touch]).max()))
-        n_touch, n_free = n_touch + int(touch.sum()), n_free + int(free.sum())
-    print(f"  [env live] live signals against the chart cache over {len(keys)} (object, action) pairs: "
-          f"codes equal, {n_free} code-1 positions equal, {n_touch} code-2 charts at most {worst:.3e} "
-          f"apart (limit {LIVE_CHART_TOL:.0e}; the cache's images were truncated to uint8)")
-    check(worst <= LIVE_CHART_TOL, f"live and cached charts {worst} apart, above {LIVE_CHART_TOL}")
-    env.sampler.disconnect()
-    cached.sampler.disconnect()
-    return launches
-
-
-def phase_simulator(root: Path, names: list) -> None:
-    """The host simulator's own numbers on the generated objects: load_objects
-    per object, ``Sampler.sample`` at bs 3 and 8, and on one scene the ms per
-    grasp, per touch render (4 fingers) and per scene image; then the native
-    rasterizer against ``use_native=False`` on three 121x121 touch views and
-    one 256x256 scene view, by the JAX package's rule: under 1% of pixels
-    differ in coverage, depths within 1e-4 where both hit."""
-    prefixes = [os.path.join(object_dirs(str(root))["object_info"], n) for n in names]
-    print(f"  [simulator] os.cpu_count() {os.cpu_count()}, SimConfig().workers {SimConfig().workers}")
-    for bs in (3, 8):
-        sampler = Sampler(bs=bs, vision=False)
-        t0 = time.perf_counter()
-        sampler.load_objects(prefixes[:bs])
-        load_ms = (time.perf_counter() - t0) * 1e3
-        ms = []
-        for action in range(0, 50, 5):
-            t0 = time.perf_counter()
-            sampler.sample([action] * bs, touch=True)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        sampler.disconnect()
-        print(f"  [simulator] bs {bs}: load_objects {load_ms / bs:.3f} ms an object; sample (touch) "
-              f"median {float(np.median(ms)):.3f} ms of 10 actions, {float(np.median(ms)) / bs:.3f} ms "
-              f"a grasp")
-    scene = Scene(vision=True)
-    scene.load_obj(np.load(prefixes[0] + "_verts.npy"), np.load(prefixes[0] + "_faces.npy"))
-    grasp_ms, render_ms, ok = [], [], []
-    for action in range(50):
-        t0 = time.perf_counter()
-        success = scene.grasp(action)
-        grasp_ms.append((time.perf_counter() - t0) * 1e3)
-        if success:
-            ok.append(action)
-            t0 = time.perf_counter()
-            scene.render_depth()
-            scene.render_touch()
-            render_ms.append((time.perf_counter() - t0) * 1e3)
-    image_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        scene.scene_render(occluded=True)
-        image_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"  [simulator] one scene: {float(np.mean(grasp_ms)):.3f} ms a grasp (50 actions, "
-          f"{len(ok)} placed), {float(np.mean(render_ms)):.3f} ms a touch render of 4 fingers, "
-          f"{float(np.median(image_ms)):.3f} ms a 256x256 scene image with the hand")
-
-    # the views: the three fingertips that see the most of the object on a
-    # placed grasp, and the scene camera on the object and the hand
-    check(scene.grasp(ok[0]), "the first placed grasp no longer places")
-    mesh = scene.obj
-    views = []
-    for f in range(4):
-        pos, rot = scene.hand.fingertip_camera(f)
-        view = (mesh.verts, mesh.faces, pos, rot, scene._touch_focal, 121, 121)
-        views.append(((raster.rasterize_depth(*view)[1] >= 0).sum(), f"finger {f} 121x121", view))
-    views = sorted(views, key=lambda v: -v[0])[:3]
-    hand = scene.hand.link_meshes()
-    cam = scene.renderer.camera
-    offsets = np.cumsum([mesh.num_verts] + [m.num_verts for m in hand])
-    scene_view = (np.concatenate([mesh.verts] + [m.verts for m in hand]),
-                  np.concatenate([mesh.faces] + [m.faces + o for m, o in zip(hand, offsets[:-1])]),
-                  np.asarray(cam.position), cam.rotation, cam.focal, 256, 256)
-    views.append((0, "scene 256x256", scene_view))
-    for _, label, view in views:
-        native_ms = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            d2, i2 = raster.rasterize_depth(*view)
-            native_ms.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        d1, i1 = raster.rasterize_depth(*view, use_native=False)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        both = (i1 >= 0) & (i2 >= 0)
-        coverage = float(((i1 >= 0) != (i2 >= 0)).mean())
-        depth_err = float(np.abs(d1[both] - d2[both]).max()) if both.any() else float("nan")
-        print(f"  [simulator] raster {label}: native {float(np.median(native_ms)):.3f} ms, numpy "
-              f"{plain_ms:.3f} ms; {int(both.sum())} pixels hit by both, coverage differs on "
-              f"{coverage:.5f} of pixels, depths at most {depth_err:.3e} apart")
-        check(both.sum() > 100 and coverage < 0.01 and depth_err <= 1e-4,
-              f"the native rasterizer disagrees with the numpy one on the {label} view")
-
-
-def time_k3_shard(x: torch.Tensor, y: torch.Tensor, label: str) -> dict:
-    """The queries ``x`` against the shard ``y``, both sorted and padded as
-    ``min_dists_clustered`` does: the selection kernel's table and K3
-    against their plain versions, K3's neighbours against K1's, then K3's
-    times beside its bound and its plain version."""
-    xs = cluster._edge_pad_points(cluster._sort_by_morton(x)[0], 256).contiguous()
-    ys = cluster._edge_pad_points(cluster._sort_by_morton(y)[0], CHUNK).contiguous()
-    ids, _ = check_select(xs, ys, CHUNK, CHUNKS_PER_TILE, label)
-    check_cluster(xs, ys, ids, CHUNK, label)
-    check_against_exact(xs, ys, cluster.nn_cluster(xs, ys, ids, CHUNK)[1], label)
-    b, n, t = xs.shape[0], xs.shape[1], ids.shape[2]
-    pairs = b * n * t * CHUNK
-    moved = (xs.numel() + ys.numel() + ids.numel() + 2 * b * n) * 4
+    return timing, select, (idx, torch.randn(b, 2 * N, 3, device=g.device, generator=g) * 1e-4)
+
+
+def time_segsum(idx_s: torch.Tensor, vals_s: torch.Tensor, s: int) -> dict:
+    """K2's times on one sorted stream beside ``scatter_add_``'s, each as
+    the median of single calls, as 20 calls between one pair of events, and
+    as 20 calls replayed from a CUDA graph (the device's time alone)."""
+    b, m = idx_s.shape
+    expand = idx_s.long()[..., None].expand(-1, -1, 3)
+    kernel = lambda: segment_accumulate_sorted(idx_s, vals_s, s)  # noqa: E731
+    library = lambda: torch.zeros(  # noqa: E731
+        b, s, 3, device=idx_s.device).scatter_add_(1, expand, vals_s)
     return {
-        "ms": time_ms(lambda: cluster.nn_cluster(xs, ys, ids, CHUNK), 20),
-        "plain_ms": time_ms(lambda: cluster.nn_cluster_plain(xs, ys, ids, CHUNK), 3),
-        "library_ms": None,
-        "bound_ms": max(9.0 * pairs / PEAK_FP32_OPS, moved / PEAK_HBM_BYTES) * 1e3,
-        "bound_by": "operations" if 9.0 * pairs / PEAK_FP32_OPS > moved / PEAK_HBM_BYTES else "bytes",
-        "table": [t, ys.shape[1] // CHUNK],
+        "ms": time_ms(kernel, 50),
+        "ms_batched": time_ms(kernel, 10, inner=20),
+        "ms_graphed": graph_ms(kernel),
+        "plain_ms": time_ms(lambda: segment_sum_plain(idx_s, vals_s, s), 20),
+        "library_ms": time_ms(library, 50),
+        "library_ms_batched": time_ms(library, 10, inner=20),
+        "library_ms_graphed": graph_ms(library),
+        # ids (4 B) and values (12 B) read once, 12 B written per segment;
+        # the kernel's zero-fill of empty segments is not in the bound
+        "bound_ms": (b * m * 16 + b * s * 12) / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes",
     }
 
 
-def shards_combined(x: torch.Tensor, y: torch.Tensor, shards: int, nn: str) -> torch.Tensor:
-    """``y``'s point axis cut into ``shards`` shards run one after the other
-    through ``chamfer_shard_terms``, combined as the collectives would:
-    the MIN of the per-query minima, the SUM of the shard sums."""
-    terms = [chamfer_shard_terms(x, ys, nn) for ys in torch.chunk(y, shards, dim=1)]
-    dx = torch.stack([d for d, _ in terms]).amin(dim=0)
-    dy = torch.stack([s for _, s in terms]).sum(dim=0)
-    return dx.mean(dim=1) + dy / y.shape[1]
+def sorted_stream(ids: torch.Tensor, vals: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A backward's K2 stream: ``ids`` sorted along each row, stably, and
+    ``vals`` (b, m, 3) in their order."""
+    idx_s, perm = torch.sort(ids, dim=1, stable=True)
+    return (idx_s.to(torch.int32).contiguous(),
+            torch.gather(vals, 1, perm[..., None].long().expand(-1, -1, 3)).contiguous())
 
 
-def counted(label: str, expected: dict, fn):
-    """``fn()`` with the launch counters from 0, checked after."""
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, read_counts(label, {k.name: 0 for k in KERNELS} | expected, held)
-
-
-def phase_parallel(dev: torch.device) -> tuple[dict, dict, dict]:
-    """The multi-rank layer at world 1 on NCCL (a ``FileStore`` under
-    ``build/chip_smoke/``): ``chamfer_distance_sharded`` exact and clustered
-    at (48, 30000)x30000 against the unsharded Chamfer; the same cloud as 4
-    shards run one after the other through ``chamfer_shard_terms`` (K1 at
-    (48, 30000)x7500 and (48, 7500)x30000, K3 on 7500-point shards); one
-    ``VisionEngine(VisionConfig())`` train step under the group against the
-    same step without one.  Returns the launches by path and K1's and K3's
-    numbers at the shard shapes."""
-    import torch.distributed as dist
-
-    n = MAIN["number_points"]
-    plain_cfg = VisionConfig(eval=True, exp_id="parallel_plain", experiments_root=EXPERIMENTS)
-    plain = VisionEngine(plain_cfg, log=False)  # built before the group: one device
-    store_dir = Path(EXPERIMENTS) / "parallel"
-    store_dir.mkdir(parents=True, exist_ok=True)
-    dist.init_process_group("nccl", store=dist.FileStore(str(store_dir / "store"), 1),
-                            rank=0, world_size=1)
-    try:
-        launches = {}
-        g = torch.Generator(device=dev).manual_seed(11)
-        x, y = surface_clouds(48, n, g, dev), surface_clouds(48, n, g, dev)
-        k1, k3, sel = NN_EXACT.name, NN_CLUSTER.name, SELECT_CHUNKS.name
-        exact, launches["sharded exact (world 1)"] = counted(
-            "sharded exact (world 1)", {k1: 2}, lambda: chamfer_distance_sharded(x, y, nn="exact"))
-        clustered, launches["sharded clustered (world 1)"] = counted(
-            "sharded clustered (world 1)", {k3: 2, sel: 2},
-            lambda: chamfer_distance_sharded(x, y, nn="clustered"))
-        whole = chamfer_distance(x, y)
-        whole_clustered = cluster.chamfer_distance_clustered(x, y)
-        four, launches["4 shards exact"] = counted(
-            "4 shards exact", {k1: 8}, lambda: shards_combined(x, y, 4, "exact"))
-        four_clustered, launches["4 shards clustered"] = counted(
-            "4 shards clustered", {k3: 8, sel: 8}, lambda: shards_combined(x, y, 4, "clustered"))
-        rel = lambda a, b: float(((a - b).abs() / b.abs()).max())  # noqa: E731
-        print(f"  [parallel] sharded exact at world 1 against chamfer_distance: max rel err "
-              f"{rel(exact, whole):.3e}; 4 in-process shards: {rel(four, whole):.3e}")
-        print(f"  [parallel] clustered over exact, max (min) relative excess: world 1 "
-              f"{float((clustered / exact).max() - 1):.3e} ({float((clustered / exact).min() - 1):.3e}), "
-              f"4 shards {float((four_clustered / four).max() - 1):.3e} "
-              f"({float((four_clustered / four).min() - 1):.3e}); unsharded clustered "
-              f"{float((whole_clustered / whole).max() - 1):.3e}")
-        check(rel(exact, whole) <= 1e-6 and rel(four, whole) <= 1e-6,
-              "the sharded exact Chamfer disagrees with the unsharded one")
-        # each query's clustered distance is at least its exact one, and the
-        # sums run in the same order: never below, not even by rounding
-        check(bool((clustered >= exact).all() and (four_clustered >= four).all()),
-              "the sharded clustered Chamfer fell below the exact one")
-        times = {
-            "sharded_exact_ms": time_ms(lambda: chamfer_distance_sharded(x, y, nn="exact"), 5),
-            "sharded_clustered_ms": time_ms(lambda: chamfer_distance_sharded(x, y, nn="clustered"), 5),
-            "four_shards_exact_ms": time_ms(lambda: shards_combined(x, y, 4, "exact"), 5),
-            "four_shards_clustered_ms": time_ms(lambda: shards_combined(x, y, 4, "clustered"), 5),
-            "unsharded_exact_ms": time_ms(lambda: chamfer_distance(x, y), 5),
-        }
-        print("  [parallel] times, ms: " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in times.items()))
-        ys = y[:, : n // 4].contiguous()
-        check_nn(x, ys, "shard x->y")
-        check_nn(ys, x, "shard y->x")
-        nn = {"shard_x_to_y": time_nn(x, ys, 3), "shard_y_to_x": time_nn(ys, x, 3)}
-        k3_times = {"shard_x_to_y": time_k3_shard(x, ys, "shard x->y"),
-                    "shard_y_to_x": time_k3_shard(ys, x, "shard y->x")}
-        for label, t in nn.items():
-            print(f"  nn_exact at the {label} shape {'(48, 30000)x7500' if 'x_to' in label else '(48, 7500)x30000'}: "
-                  f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  bound {t['bound_ms']:.4f} ms "
-                  f"(operations), of which the kernel reaches {t['bound_ms'] / t['ms']:.3f}")
-        for label, t in k3_times.items():
-            print(f"  nn_cluster at the {label} shape, T {t['table'][0]} of {t['table'][1]} chunks: "
-                  f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']})")
-
-        # one train step of the default vision trainer under the group
-        cfg = VisionConfig(eval=True, exp_id="parallel_group", experiments_root=EXPERIMENTS)
-        grouped = VisionEngine(cfg, log=False)
-        check(grouped.group is not None and grouped.world == 1 and plain.group is None,
-              "the engines did not see the process group as expected")
-        start = copy.deepcopy(plain.state_dict())  # the weights and a fresh optimizer
-        grouped.load_state_dict(start)
-        batch = grouped.to_device(surface_batch(cfg, dev))
-        # the BatchNorms on their running statistics, the mode in which
-        # check_step_against_plain holds a step's gradients to 1e-3 of each
-        # norm: in train mode the card's atomic adds (index_add_,
-        # grid_sample) move some gradients by 1e-3 of their norm between
-        # two runs of one step, and those of the conv biases that feed a
-        # BatchNorm, zero in exact arithmetic, by all of it
-        steps = {}
-        for label, engine in (("group", grouped), ("plain", plain)):
-            engine.model.train = lambda mode=True, m=engine.model: torch.nn.Module.train(m, False)
-            try:
-                loss = float(engine.train_step(batch, engine.step_generator(0)))
-            finally:
-                del engine.model.train
-            steps[label] = (loss, {k: p.grad.clone() for k, p in engine.model.named_parameters()})
-            engine.load_state_dict(start)
-        (loss_g, grads_g), (loss_p, grads_p) = steps["group"], steps["plain"]
-        ratios = sorted((float((grads_g[k] - g).norm() / g.norm()), k) for k, g in grads_p.items())
-        print(f"  [parallel] step under the group against without, BatchNorms on their running "
-              f"statistics: loss {loss_g} and {loss_p}; worst gradient norm ratios "
-              f"{[(k, f'{r:.3e}') for r, k in ratios[-3:]]}")
-        check(abs(loss_g - loss_p) <= 1e-6 * abs(loss_p) and ratios[-1][0] <= 1e-3,
-              "the train step under the group changed the loss or a gradient")
-
-        # the same step in train mode: its BatchNorms normalise over the batch
-        before = {k: p.detach().clone() for k, p in plain.model.named_parameters()}
-        loss_g, launches["train step under the group"] = counted(
-            "train step under the group", {k3: 2, sel: 2, SEGSUM.name: 2},
-            lambda: float(grouped.train_step(batch, grouped.step_generator(0))))
-        loss_p = float(plain.train_step(batch, plain.step_generator(0)))
-        pairs = list(zip(grouped.model.parameters(), plain.model.parameters(), before.values()))
-        # Adam's first step is about lr * sign(g) in every element, so an
-        # element whose gradient is rounding noise (atomic adds in the
-        # backward) may step the other way: the share of elements whose
-        # update differs by more than 2% of lr is held below 1e-3
-        lr = cfg.lr
-        moved = sum(int(((a - b).detach().abs() > 0.02 * lr).sum()) for a, b, _ in pairs)
-        share = moved / sum(a.numel() for a, _, _ in pairs)
-        print(f"  [parallel] VisionEngine(VisionConfig()) train step under the group: loss {loss_g}, "
-              f"without a group {loss_p}; updates differing by more than 2% of lr (lr {lr}): "
-              f"{moved} elements, a share of {share:.3e}")
-        check(abs(loss_g - loss_p) <= 1e-6 * abs(loss_p), "the train step under the group changed the loss")
-        check(share <= 1e-3, "the train step under the group changed the update")
-    finally:
-        dist.destroy_process_group()
-    return launches, nn, k3_times
-
-
-def png_size(path: Path) -> tuple[int, int]:
-    """(height, width) from a PNG's IHDR; fails unless the file starts with
-    the PNG signature."""
-    data = path.read_bytes()[:24]
-    check(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", f"{path} is no PNG")
-    width, height = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
-    return height, width
-
-
-def run_cli(args: list, label: str, timeout: int = 600) -> tuple[str, float]:
-    """``python -m active_3d_vision_and_touch_tpu_torch.cli <args>`` from the
-    checkout; fails unless it exits with 0.  Returns its standard output
-    and wall seconds."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "active_3d_vision_and_touch_tpu_torch.cli", *args],
-                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
-    seconds = time.perf_counter() - t0
-    print(f"  [cli] {label}: exit {proc.returncode} in {seconds:.1f} s; last line: "
-          f"{(proc.stdout.strip().splitlines() or [''])[-1][:300]}")
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n")
-    check(proc.returncode == 0, f"the command line's {label} failed")
-    return proc.stdout, seconds
-
-
-def phase_cli(root: Path) -> dict:
-    """The command line in subprocesses on the generated world (8 objects:
-    2 in recon_train, 3 in auto_train, 1 each in RL_train, valid and test):
-    ``train-touch`` one epoch, ``make-touch-charts`` from its checkpoint,
-    ``train-vision`` one epoch (the clustered loss), ``train-auto`` one
-    epoch, ``policy even --visualize`` on the test object; then
-    ``VisionEngine.evaluate_detailed`` with ``visualize_dir`` on the vision
-    checkpoint, and ``bench`` in full.  Batches are cut to what the splits
-    hold: vision 2, autoencoder 3, env batch 1.  Every PNG is checked for
-    its signature and its IHDR size.  Returns the wall seconds by command."""
-    exp = Path(EXPERIMENTS) / "cli"
-    common = ["--root", str(root), "--experiments-root", str(exp), "--epochs", "1"]
-    ckpt = lambda exp_id: str(exp / "checkpoint" / "test" / exp_id)  # noqa: E731
-    seconds = {}
-    results = ROOT / PolicyConfig(exp_id="even").results_dir  # relative to the checkout
-    shutil.rmtree(results, ignore_errors=True)
-    _, seconds["train-touch"] = run_cli(["train-touch", *common, "--exp-id", "touch"], "train-touch")
-    _, seconds["make-touch-charts"] = run_cli(
-        ["make-touch-charts", "--root", str(root), "--touch-location", ckpt("touch")],
-        "make-touch-charts")
-    _, seconds["train-vision"] = run_cli(
-        ["train-vision", *common, "--exp-id", "vision", "--batch-size", "2"], "train-vision")
-    _, seconds["train-auto"] = run_cli(
-        ["train-auto", *common, "--exp-id", "auto", "--batch-size", "3",
-         "--vision-location", ckpt("vision")], "train-auto")
-    out, seconds["policy even"] = run_cli(
-        ["policy", "even", "--root", str(root), "--experiments-root", str(exp), "--eval",
-         "--visualize", "--env-batch-size", "1", "--exp-id", "even",
-         "--touch-location", ckpt("touch"), "--vision-location", ckpt("vision"),
-         "--auto-location", ckpt("auto")], "policy even --visualize")
-    summary = json.loads(out.strip().splitlines()[-1])
-    check(np.isfinite(summary["pct_cd_remaining"]), "the even policy's result is not finite")
-    num_actions = PolicyConfig().num_actions
-    for name, size in (("histogram.png", (viz._HIST_PLOT_H + 2 * viz._HIST_MARGIN,
-                                          num_actions * viz._HIST_BAR + 2 * viz._HIST_MARGIN)),
-                       ("sphere_projection.png", (2 * num_actions, 4 * num_actions))):
-        check(png_size(results / name) == size, f"{name}: not the promised {size}")
-
-    t0 = time.perf_counter()
-    cfg = load_config(ckpt("vision"), VisionConfig)
-    cfg.eval = True
-    engine = VisionEngine(cfg, log=False)
-    restored = engine.ckpt.restore("best", map_location=engine.device)
-    check(restored is not None, "train-vision wrote no best checkpoint")
-    engine.load_state_dict(restored)
-    dataset = VisionDataset(str(root), "valid", use_img=cfg.use_img, use_touch=cfg.use_touch,
-                            finger=cfg.finger, num_grasps=cfg.num_grasps,
-                            number_points=cfg.number_points, eval_mode=True)
-    held = torch.cuda.memory_allocated()
-    count_from_zero()
-    viz_dir = exp / "evaluate_detailed"
-    mean_cd, per_object = engine.evaluate_detailed(Loader(dataset, 2, shuffle=False), str(viz_dir))
-    torch.cuda.synchronize()
-    seconds["evaluate_detailed"] = time.perf_counter() - t0
-    # 2 exact searches a batch of 2, no backward
-    launches = read_counts("evaluate_detailed", {k.name: 0 for k in KERNELS}
-                           | {NN_EXACT.name: len(per_object)}, held)
-    print(f"  [cli] evaluate_detailed: {len(per_object)} objects, mean CD {mean_cd}, "
-          f"{seconds['evaluate_detailed']:.1f} s")
-    check(np.isfinite(mean_cd) and len(per_object) == 4, "evaluate_detailed gave no finite result")
-    pngs = sorted(viz_dir.rglob("*.png"))
-    check(len(pngs) >= 2, "evaluate_detailed rendered nothing")
-    for path in pngs:
-        check(png_size(path) == (256, 256), f"{path}: not 256x256")
-
-    out, seconds["bench"] = run_cli(["bench"], "bench", timeout=900)
-    payload = json.loads(out.strip().splitlines()[-1])
-    print(f"  [cli] bench: {json.dumps(payload)}")
-    check(payload["value"] > 0 and payload["vs_baseline"] > 0, "the benchmark measured nothing")
-    print(f"  [cli] wall seconds by command: {seconds}")
-    return {"evaluate_detailed": launches, "seconds": seconds, "bench": payload}
-
-
-def loss_and_grads(engine, batch: dict, seed: int):
-    engine.model.eval()  # running statistics: the two passes see one model
-    engine.model.zero_grad(set_to_none=True)
-    loss = engine._loss(batch, engine.step_generator(seed), None)
-    loss.backward()
-    return float(loss.detach()), [p.grad.clone() for p in engine.model.parameters()]
-
-
-def check_step_against_plain(engine, batch: dict, label: str) -> None:
-    """One full-width forward + backward of an exact-loss path on the
-    kernels against the same on the plain versions (``loss_nn="xla"``, and
-    the sampler's backward on ``index_add_``): the loss equal, the worst
-    gradient norm ratio at most 1e-3."""
-    t0 = time.perf_counter()
-    loss_k, grads_k = loss_and_grads(engine, batch, 7)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    engine.config.loss_nn = "xla"  # the plain brute force and index_add_
-    sampler.segment_accumulate_sorted = segment_sum_plain  # and the sampler's backward on it
-    try:
-        loss_p, grads_p = loss_and_grads(engine, batch, 7)
-    finally:
-        sampler.segment_accumulate_sorted = segment_accumulate_sorted
-        engine.config.loss_nn = "exact"
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"  full width ({label}), forward + backward: {(t1 - t0) * 1e3:.3f} ms on the kernels, "
-          f"{(t2 - t1) * 1e3:.3f} ms on the plain versions")
-    worst = max(float((a - b).norm() / (b.norm() + 1e-30)) for a, b in zip(grads_k, grads_p))
-    print(f"  full width ({label}): loss kernels {loss_k} plain {loss_p}; "
-          f"worst relative grad error (norm) {worst:.3e}")
-    # the forward is bit-identical; the backward differs by the order of
-    # atomic adds (index_add_, grid_sample), which bf16 rounding can amplify
-    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), f"full-width loss ({label}): kernels != plain")
-    check(worst <= 1e-3, f"full-width gradients ({label}): kernels != plain")
-
-
-def phase_outputs(paths: dict) -> None:
-    """Full width: kernels vs plain versions inside the whole exact vision
-    step and the autoencoder step, the clustered Chamfer on the kernels vs
-    the plain versions, and the clustered loss vs the exact one.  Small
-    width: the card vs the CPU."""
-    check_step_against_plain(*paths["exact"], "v_t_g exact")
-    check_step_against_plain(*paths["autoencoder"], "autoencoder")
-
-    # the clustered Chamfer at the train step's shapes: 48 folded clouds
-    # sampled from the deformed mesh against the 16 gt clouds
-    engine, batch = paths["clustered"]
-    n = engine.config.number_points
-    engine.model.eval()
-    with torch.no_grad():
-        charts = prepare_charts(batch["touch_charts"], engine.initial_mesh, 16)
-        verts, _ = engine.model(batch["img"], charts, engine.adj, engine.original_adj)
-        pts = batch_sample(verts, engine.faces, REPEAT * n, generator=engine.step_generator(8))
-    preds = torch.cat(torch.split(pts, n, dim=1), 0).contiguous()
-
-    # the sampler's backward alone at the step's shapes (16 meshes, 90000
-    # samples): K2 against index_add_, which adds with atomics, by K2's
-    # tolerance against the sum of the absolute terms
-    cot = torch.randn(pts.shape, device=pts.device, generator=engine.step_generator(9))
-    draws = draw_sample_noise(16, REPEAT * n, engine.step_generator(8), pts.device)
-
-    def sampler_backward(segsum, cotangent):
-        v = verts.detach().clone().requires_grad_()
-        sampler.segment_accumulate_sorted = segsum
-        try:
-            sampled = batch_sample(v, engine.faces, REPEAT * n, draws=draws)
-            return torch.autograd.grad(sampled, v, cotangent)[0]
-        finally:
-            sampler.segment_accumulate_sorted = segment_accumulate_sorted
-
-    d_kernel = sampler_backward(segment_accumulate_sorted, cot)
-    d_plain = sampler_backward(segment_sum_plain, cot)
-    # the barycentric weights are positive, so the backward of |g| is Σ|w g|
-    scale = sampler_backward(segment_sum_plain, cot.abs())
-    back_err = (d_kernel - d_plain).abs()
-    print(f"  sampler backward at (16, {REPEAT * n}): max_abs_err {float(back_err.max()):.3e} "
-          f"against the plain version, largest element {float(d_plain.abs().max()):.3e}")
-    check(bool((back_err <= 1e-5 * (1 + scale)).all()), "sampler backward: kernel != plain")
-
-    out = {}
-    for plain in (False, True):
-        x = preds.clone().requires_grad_()
-        cd = cluster.chamfer_clustered_tiled_gt(x, batch["gt_points"], REPEAT, plain=plain)
-        (grad,) = torch.autograd.grad(cd.sum(), x)
-        out[plain] = (cd.detach(), grad)
-    value_err = float((out[False][0] - out[True][0]).abs().max())
-    grad_err = float((out[False][1] - out[True][1]).abs().max())
-    grad_max = float(out[True][1].abs().max())
-    print(f"  chamfer_clustered_tiled_gt at (48, {n}) x (16, {n}): value max_abs_err {value_err}, "
-          f"x-gradient max_abs_err {grad_err:.3e} against a largest element of {grad_max:.3e}")
-    # the forward is the same arithmetic on the same neighbours; the backward
-    # differs by the order of index_add_'s atomic adds: K2's tolerance, 1e-5
-    # relative, against the gradient's largest element
-    check(value_err == 0.0, "clustered Chamfer value: kernels != plain")
-    check(grad_err <= 1e-5 * grad_max, "clustered Chamfer x-gradient: kernels != plain")
-
-    # clustered against exact on the same batch and the same draws: a pruned
-    # search can miss a neighbour, never find a nearer one
-    loss_c, _ = loss_and_grads(engine, batch, 7)
-    engine.config.loss_nn = "exact"
-    loss_e, _ = loss_and_grads(engine, batch, 7)
-    engine.config.loss_nn = "clustered"
-    print(f"  full width: clustered loss {loss_c} exact loss {loss_e} "
-          f"relative gap {(loss_c - loss_e) / loss_e:.3e}")
-    check(loss_c >= loss_e * (1 - 1e-6), "clustered loss below the exact loss")
-
-    small = dict(batch_size=2, number_points=256, num_gcn_layers=3, hidden_gcn_size=32,
-                 num_cnn_blocks=3, eval=True, experiments_root=EXPERIMENTS)
-    rng = np.random.default_rng(1)
-    host = {
-        "img": rng.uniform(size=(2, 64, 64, 3)).astype(np.float32),
-        "gt_points": (rng.normal(size=(2, 256, 3)) * 0.1).astype(np.float32),
-        "touch_charts": (rng.normal(size=(2, 5, 4, 25, 4)) * 0.1).astype(np.float32),
+def phase_segsum(c: dict, clustered: tuple, g: torch.Generator) -> dict:
+    """K2 on each backward's stream: its numbers on the v_t_g step's at
+    the top, each other stream's under its key (a ``_stream`` with its own
+    ``max_abs_err``)."""
+    vals = lambda *shape: torch.randn(*shape, 3, device=g.device, generator=g) * 1e-4  # noqa: E731
+    argmins = lambda x, y: min_dists(x, y)[1]  # noqa: E731
+    streams = {
+        # the gt->prediction argmins, which send many gt points to one
+        # sample (the duplicate-heavy direction)
+        "main": (*sorted_stream(argmins(c["gt"], c["preds"]), vals(48, N)), N),
+        "touch_shape": (*sorted_stream(argmins(c["touch_gt"], c["touch_preds"]), vals(192, 4000)), 4000),
+        "clustered_stream": (*sorted_stream(*clustered), N),
+        # the samples' argmins into the decoded points
+        "autoencoder_stream": (*sorted_stream(argmins(c["preds"], c["decoded"]), vals(48, N)),
+                               AE_POINTS),
     }
-    coded = dict(host, touch_charts=host["touch_charts"].copy())
-    coded["touch_charts"][..., 3] = rng.integers(0, 3, size=(2, 5, 4, 25))  # mask codes: contacts
-    draws = draw_sample_noise(2, REPEAT * 256, torch.Generator().manual_seed(2))
-    for label, extra, data in (
-        ("exact", dict(loss_nn="exact"), host),
-        ("clustered, touch_global and touch_plane", dict(touch_global=True, touch_plane=True), coded),
+    # the sampler's backward: 3 corners x 16 meshes of 3 x 30k sorted face
+    # ids of the vision atlas, 3 corners x 64 touch charts of 3 x 4000; and
+    # the vision shape with one face taking every sample, one warp a row
+    (verts, faces), chart = vtg_mesh(g.device), touch_chart()
+    for key, verts, faces, num in (
+        ("sampler_stream", verts.expand(16, -1, -1), faces, REPEAT * N),
+        ("touch_sampler_stream", torch.as_tensor(chart.verts, device=g.device)[None].expand(64, -1, -1),
+         torch.as_tensor(chart.faces, device=g.device).long(), REPEAT * 4000),
     ):
-        cfg = VisionConfig(**small, **extra)
-        results = {}
-        for device in ("cuda", "cpu"):
-            eng = VisionEngine(cfg, device=device, log=False)
-            d = tuple(t.to(device) for t in draws)
-            results[device] = float(eng.eval_step(eng.to_device(data), draws=d))
-            trained = float(eng.train_step(eng.to_device(data), draws=d))
-            check(np.isfinite(trained), f"small width ({label}): non-finite train loss on {device}")
-        rel = abs(results["cuda"] - results["cpu"]) / abs(results["cpu"])
-        print(f"  small width ({label}): eval loss card {results['cuda']} "
-              f"cpu {results['cpu']} rel {rel:.2e}")
-        # the card runs the GCN products in bf16 and the convolutions in TF32
-        check(rel <= 5e-2, f"small-width loss ({label}): card and CPU disagree")
+        e, _, _ = draw_sample_noise(verts.shape[0], num, g, g.device)
+        ids = sample_faces(verts, faces, e).to(torch.int32).repeat(3, 1).contiguous()
+        streams[key] = (ids, vals(*ids.shape), faces.shape[0])
+    ids, v, f = streams["sampler_stream"]
+    streams["one_face_stream"] = (torch.full_like(ids, 17), v, f)
 
-
-def phase_profile(run, label: str) -> None:
-    """One call of ``run`` (a train step, a greedy selection) under
-    ``torch.profiler`` beside the same call without it: the device's time
-    by kernel, and the host's side: its time in the launch calls and the
-    time it waits for the card."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0:
-        print(f"  profile ({label}): no device time recorded (not measured)")
-        return
-    print(f"  profile of one {label}: wall {wall_ms:.3f} ms (under the profiler), "
-          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{sum(e.count for e in kernels)} kernel launches")
-    # the host's side, from the profiler's CPU events: a step whose host
-    # waits long in the synchronising calls is held by the card, one whose
-    # host hardly waits there is held by the host
-    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
-    calls = lambda *names: [e for e in host if e.key in names]  # noqa: E731
-    launch = calls("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-    waits = calls("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
-    launch_ms = sum(e.self_cpu_time_total for e in launch) / 1e3
-    n_launch = sum(e.count for e in launch)
-    wait_ms = sum(e.self_cpu_time_total for e in waits) / 1e3
-    print(f"    the same without the profiler, just before: wall {plain_wall_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / plain_wall_ms:.3f} by the profiled call's device time")
-    print(f"    host under the profiler: {n_launch} launch calls {launch_ms:.3f} ms "
-          f"({launch_ms / max(n_launch, 1) * 1e3:.2f} us each), waiting in "
-          f"{sum(e.count for e in waits)} synchronising calls {wait_ms:.3f} ms, "
-          f"the other {wall_ms - launch_ms - wait_ms:.3f} ms in Python and the dispatcher")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
-    ours = {k.name: sum(e.self_device_time_total for e in kernels if f"{k.name}_kernel" in e.key) / 1e3
-            for k in KERNELS}
-    print(f"    the hand-written kernels, ms: {ours}")
-    # the sampler's backward sums runs of sorted ids with the segment-sum
-    # kernel; a prefix sum over the sample axis in its place (an outer-
-    # dimension scan of a (16, 90000, 3, 3) tensor) costs a fifth of the step
-    check(not any("scan_outer_dim" in e.key for e in kernels),
-          f"an outer-dimension scan is back among the kernels of the {label}")
+    out, err = {}, 0.0
+    for key, (idx_s, vals_s, s) in streams.items():
+        t = out[key] = time_segsum(idx_s, vals_s, s)
+        # the plain version adds with atomics: |err| <= 1e-5 x (1 + Σ|v| of the segment)
+        got = segment_accumulate_sorted(idx_s, vals_s, s)
+        diff = (got - segment_sum_plain(idx_s, vals_s, s)).abs()
+        e = float(diff.max())
+        err = max(err, e)
+        check(bool((diff <= 1e-5 * (1 + segment_sum_plain(idx_s, vals_s.abs(), s))).all())
+              and torch.equal(got, segment_accumulate_sorted(idx_s, vals_s, s)),
+              f"segsum_sorted disagrees with its plain version, or with itself, at {key}")
+        if key.endswith("_stream"):
+            t["max_abs_err"] = e
+        if key == "clustered_stream":
+            t["with_sort_ms"] = time_ms(lambda: scatter_add_3(*clustered, N), 20)
+        print(f"  segsum_sorted at {key} {tuple(idx_s.shape)}->S={s}: kernel {t['ms']:.4f} ms single, "
+              f"{t['ms_batched']:.4f} ms batched, {t['ms_graphed']:.4f} ms graphed  plain "
+              f"{t['plain_ms']:.3f} ms  library (scatter_add_) {t['library_ms']:.4f} ms single, "
+              f"{t['library_ms_batched']:.4f} ms batched, {t['library_ms_graphed']:.4f} ms graphed  "
+              f"bound {t['bound_ms']:.4f} ms (bytes)"
+              + (f"; with its stable sort {t['with_sort_ms']:.3f} ms" if "with_sort_ms" in t else ""))
+        # one face a row is one address for the library's atomics and one
+        # warp for the kernel: printed, and held to no time
+        check(key == "one_face_stream" or t["ms_graphed"] <= t["library_ms_graphed"],
+              f"segsum_sorted is slower than scatter_add_ at {key}")
+    return {**out.pop("main"), "max_abs_err": err, **out}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
-    dev = torch.device("cuda")
     t_start = time.perf_counter()
     print("== 1 environment")
     card = phase_environment()
     print("== 2 build")
     phase_build()
-    print("== 3 kernels against their plain versions")
-    timing = phase_kernels(dev)
-    (timing[NN_CLUSTER.name], timing[SELECT_CHUNKS.name],
-     timing[SEGSUM.name]["clustered_stream"]) = phase_cluster(dev)
-    timing[SEGSUM.name].update(phase_sampler(dev))
-    nn_shapes, seg_shapes = phase_slice_shapes(dev)
-    timing[NN_EXACT.name].update(nn_shapes, max_abs_err=max(
-        timing[NN_EXACT.name]["max_abs_err"], nn_shapes["max_abs_err"]))
-    timing[SEGSUM.name].update(seg_shapes, max_abs_err=max(
-        timing[SEGSUM.name]["max_abs_err"], seg_shapes["autoencoder_stream"]["max_abs_err"]))
-    print("== 4 main paths at full width: v_t_g exact, v_t_g clustered (the default), touch, "
-          "autoencoder, active environment, learned policies, trainers from disk, dataset "
-          "generation and touch charts, the environment on live grasps, the host simulator")
-    shutil.rmtree(EXPERIMENTS, ignore_errors=True)  # no engine resumes an earlier run
-    paths, launches = phase_main_paths(dev)
-    launches["env"], env = phase_env(dev)
-    policy_launches, ddqn_episode_run = phase_policies(dev, env)
-    launches.update(policy_launches)
-    launches.update(phase_trainers_from_disk(dev))
-    (launches["touch charts"], touch_engine, gen_root, gen_names,
-     timing[NN_CLUSTER.name]["agreement_on_generated"]) = phase_generation(
-        dev, timing[NN_CLUSTER.name]["agreement_with_exact"])
-    launches["env live"] = phase_env_live(dev, gen_root, touch_engine)
-    phase_simulator(gen_root, gen_names)
-    print("== 4b the multi-rank layer at world 1 (NCCL), the sharded Chamfer")
-    parallel_launches, nn_shards, k3_shards = phase_parallel(dev)
-    launches.update(parallel_launches)
-    timing[NN_EXACT.name].update(nn_shards)
-    timing[NN_CLUSTER.name].update(k3_shards)
-    print("== 5 outputs")
-    phase_outputs(paths)
-    print("== 6 profile")
-    for label, (engine, batch) in paths.items():
-        gen = engine.step_generator(200)
-        phase_profile(lambda: engine.train_step(batch, gen), f"{label} train step")
-    phase_profile(env.best_action, "env greedy selection (every grasp scored)")
-    phase_profile(ddqn_episode_run, "DDQN episode (latent; 5 env steps, 5 updates)")
-    print("== 7 the command line on the generated world, evaluate_detailed, bench")
-    cli_run = phase_cli(gen_root)
-    launches["evaluate_detailed"] = cli_run["evaluate_detailed"]
+    print("== 3 timings at the paths' shapes")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    clouds = make_clouds(g)
+    timing = {NN_EXACT.name: phase_nn(clouds)}
+    timing[NN_CLUSTER.name], timing[SELECT_CHUNKS.name], clustered = phase_cluster(clouds, g)
+    timing[SEGSUM.name] = phase_segsum(clouds, clustered, g)
+    print(f"== 4 the cuda tests, at {time.perf_counter() - t_start:.1f} s", flush=True)
+    tests = subprocess.run([sys.executable, "-m", "pytest", *CUDA_TESTS, "-q", "-m", "cuda", "--noconftest"],
+                           cwd=ROOT)
+    check(tests.returncode == 0, f"the cuda tests failed (exit code {tests.returncode})")
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -2382,9 +609,8 @@ def main() -> int:
             "route": "cuda",
             "source": str(k.source.relative_to(ROOT)),
             "replaces": sources[k.name],
-            # summed over the main paths, each counted from 0
-            "launches": sum(by_kernel[k.name] for by_kernel in launches.values()),
-            "launches_by_path": {path: by_kernel[k.name] for path, by_kernel in launches.items()},
+            "launches": None,  # counted by the cuda tests, path by path
+            "launches_by_path": None,
             **{key: timing[k.name][key] for key in fields},
             **{key: value for key, value in timing[k.name].items() if key not in fields},
         }
@@ -2392,12 +618,12 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {
+    print(json.dumps({"ok": not FAILED, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
-    return 0
+    return 1 if FAILED else 0
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ the kernels' designs make risky (``active_3d_vision_and_touch_tpu_torch.testing`
 
 JAX runs on the CPU here, its Pallas kernels in interpret mode.  The same
 cases go through the hand-written kernels on the card in
-``test_torch_kernels.py`` (marked ``cuda``) and in ``chip_smoke.py``.
+``test_torch_kernels.py`` (marked ``cuda``).
 """
 
 import functools

@@ -333,17 +333,21 @@ def test_touch_engine_trains_and_predicts(tmp_path, rng):
 _BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "active_3d_vision_and_touch_tpu", "cv2", "PIL"}
 
 
+# the tests that run on the card's machine, which has no JAX
+_CARD_TESTS = ("test_torch_kernels.py", "test_torch_step_graph.py", "test_torch_card.py")
+
+
 def _port_sources():
     return sorted((REPO / "active_3d_vision_and_touch_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"
-    ]
+    ] + [REPO / "tests" / name for name in _CARD_TESTS]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_no_jax(path):
-    """No module of the port, and not chip_smoke.py, imports JAX, flax,
-    optax, orbax, the JAX package, OpenCV or PIL (at any level of the
-    file)."""
+    """No module of the port, not chip_smoke.py and none of the tests run
+    on the card imports JAX, flax, optax, orbax, the JAX package, OpenCV or
+    PIL (at any level of the file)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
