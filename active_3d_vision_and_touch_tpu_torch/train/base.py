@@ -40,13 +40,34 @@ card (:func:`capturable_`), and back at ``load_state_dict``: a step that
 no graph holds runs the plain Adam.  The CPU and the ranks run every step
 eagerly.
 
-Spans (``utils/profiler.py``, recorded under a profiler): ``recon.to_device``,
+The batch copy.  :meth:`ReconEngine.to_device` sends a batch to the card
+ahead of the step that reads it.  Each host array (numpy, or a CPU tensor)
+is staged once, as float32, into pinned memory (``core/device.py::stage``)
+and copied from there without waiting on the engine's copy stream, created
+at the first such batch; the current stream waits on the copies by an
+event, so the copy of batch n runs on the card's copy engine while step
+n-1 computes, and step n still reads batch n whole.  Each call returns new
+tensors, the caller's to keep: they are allocated under the copy stream
+and recorded on the consuming one, so the caching allocator hands their
+blocks out again only after the consumer's work on them.  At most
+``IN_FLIGHT`` batches are in flight: before staging another, the host
+waits on an event recorded on the consuming stream at the previous call,
+which marks the end of the step that read the batch before it.  The route
+follows what the call observes: a CUDA engine stages the values that live
+on the host; a CUDA tensor is taken as it is on the current stream, and a
+CPU engine takes every value as it is, as before.
+
+Spans (``utils/profiler.py``, recorded under a profiler): ``recon.to_device``
+(the staging and the copies' queueing, not the in-flight wait),
 ``recon.train_step`` over ``recon.optimizer`` (``zero_grad``, then
 ``step``), ``recon.forward_loss`` and ``recon.backward`` (with the
 gradients' exchange across ranks) in an eager step, ``recon.replay`` in a
 replayed one, and ``recon.eval_step``.  Counters: ``recon.eager_steps``,
 ``recon.graph_captures`` and ``recon.graph_replays``, one of them a train
-step.  A replay adds the counters its capture counted
+step; ``recon.staged_batches``, one a batch that took the staged route, and
+``recon.staging_waits``, one each time the host blocked on the in-flight
+bound (near the staged batches when the card sets the pace, near 0 when
+the host does).  A replay adds the counters its capture counted
 (``profiler.recount``); ``CudaKernel.launches`` counts the capture's
 launches once, as the first replay runs them, and no later replay's (a
 device trace counts those).
@@ -54,6 +75,7 @@ device trace counts those).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import time
@@ -64,7 +86,7 @@ import torch
 import torch.distributed as dist
 
 from active_3d_vision_and_touch_tpu_torch.core.config import save_config
-from active_3d_vision_and_touch_tpu_torch.core.device import resolve_device
+from active_3d_vision_and_touch_tpu_torch.core.device import host_to_device, on_host, resolve_device
 from active_3d_vision_and_touch_tpu_torch.models.vision import sync_batchnorm_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import REPEAT
 from active_3d_vision_and_touch_tpu_torch.ops.sample import draw_sample_noise
@@ -81,6 +103,7 @@ from active_3d_vision_and_touch_tpu_torch.train.common import (
 from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, counted, recount, span
 
 WARMUP_STEPS = 2  # eager steps of a key before its step is captured
+IN_FLIGHT = 2  # staged batches whose steps may be unfinished: the one running, the one staged
 
 
 def capturable_(optimizer: torch.optim.Optimizer, on: bool) -> None:
@@ -172,6 +195,8 @@ class ReconEngine:
         self.built = False
         self._graph: _StepGraph | None = None
         self._stream = None  # the warm-up steps' side stream
+        self._copy_stream = None  # the staged batches' copies
+        self._consumed = collections.deque()  # events: the steps queued by each staged call
 
     def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
         """The scalar training loss of ``batch`` (provided by subclasses)."""
@@ -302,14 +327,41 @@ class ReconEngine:
         capturable_(self.optimizer, False)
 
     def to_device(self, batch: dict) -> dict:
-        """Host or device arrays → float32 tensors on the engine's device;
-        metadata (``names``) stays behind."""
+        """Host or device arrays → new float32 tensors on the engine's
+        device, the caller's to keep; metadata (``names``) stays behind.
+        To the card, the host arrays take the staged route (the module's
+        docstring): on a copy stream, at most ``IN_FLIGHT`` batches ahead."""
+        arrays = {k: v for k, v in batch.items() if k != "names"}
+        staged = self.device.type == "cuda" and any(map(on_host, arrays.values()))
+        if staged:
+            current = torch.cuda.current_stream(self.device)
+            self._bound_in_flight(current)
         with span("recon.to_device"):
-            return {
-                k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                for k, v in batch.items()
-                if k != "names"
-            }
+            if staged:
+                count("recon.staged_batches")
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(self._copy_stream):
+                    for k, v in arrays.items():
+                        if on_host(v):
+                            arrays[k] = host_to_device(v, self.device)
+                            arrays[k].record_stream(current)
+                current.wait_stream(self._copy_stream)
+            return {k: torch.as_tensor(v, dtype=torch.float32, device=self.device) for k, v in arrays.items()}
+
+    def _bound_in_flight(self, current) -> None:
+        """Mark on ``current`` the end of the work queued so far (the step
+        of the last staged batch); once ``IN_FLIGHT`` such marks wait,
+        block the host on the oldest, which ends the step of the batch
+        before the last, and count the block in ``recon.staging_waits``."""
+        consumed = torch.cuda.Event()
+        consumed.record(current)
+        self._consumed.append(consumed)
+        if len(self._consumed) >= IN_FLIGHT:
+            oldest = self._consumed.popleft()
+            if not oldest.query():
+                count("recon.staging_waits")
+                oldest.synchronize()
 
     def build(self) -> None:
         """Resume from the ``recent`` checkpoint if there is one."""

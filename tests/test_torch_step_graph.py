@@ -4,13 +4,16 @@ On the CPU: the rule by which a step replays (:func:`graph_key`), case by
 case; the CPU's steps all eager; Adam's ``capturable`` turned on and off,
 and a capturing engine's checkpoint training on the CPU; the recorder
 carrying a capture's counters to its replays; ``host_syncs`` sorting a
-block's warnings.  Marked ``cuda`` (skipped without a card): a replayed
-touch, vision and autoencoder step against an eager twin from the same
-weights on the same batches and draws, the counters and the kernels'
-launches in a device trace, a recapture after ``load_state_dict``, a
-batch of another shape, and a step that synchronises the host staying
-eager.  This file imports no JAX, so on a machine without JAX it runs
-alone:
+block's warnings; ``to_device`` on a CPU engine taking each value as it
+is, and the values the staged route sends.  Marked ``cuda`` (skipped
+without a card): a replayed touch, vision and autoencoder step against an
+eager twin from the same weights on the same batches and draws, the
+counters and the kernels' launches in a device trace, a recapture after
+``load_state_dict``, a batch of another shape, and a step that
+synchronises the host staying eager; the staged batch copy: held batches
+arriving whole beside a busy card, no host sync, replayed steps fed by it
+against steps fed by synchronous copies, and its counters.  This file
+imports no JAX, so on a machine without JAX it runs alone:
 
     python -m pytest tests/test_torch_step_graph.py --noconftest -q
 """
@@ -27,6 +30,7 @@ from active_3d_vision_and_touch_tpu_torch.core.config import (
     TouchConfig,
     VisionConfig,
 )
+from active_3d_vision_and_touch_tpu_torch.core.device import on_host
 from active_3d_vision_and_touch_tpu_torch.ops import NN_EXACT, SEGSUM, draw_sample_noise
 from active_3d_vision_and_touch_tpu_torch.train.autoencoder import AutoencoderEngine
 from active_3d_vision_and_touch_tpu_torch.train.base import (
@@ -223,6 +227,42 @@ def test_host_syncs_sorts_the_blocks_warnings(monkeypatch):
     assert [str(w.message) for w in outer] == ["something else"]
 
 
+def test_cpu_to_device_takes_each_value_as_it_is(tmp_path, rng):
+    """On a CPU engine ``to_device`` keeps the route it always had: float32
+    tensors equal to the arrays (a float64 one rounded as numpy rounds it),
+    ``names`` left behind, a float32 tensor passed through as itself, and
+    no batch counted as staged."""
+    engine, make, points = _engine("touch", tmp_path, "cpu")
+    host = make(rng, 3, points)
+    host["samples"] = host["samples"].astype(np.float64)
+    tensor = torch.from_numpy(host.pop("ref_rot"))
+    profiler.reset()
+    out = engine.to_device({"names": [("obj", 0, 1)] * 3, **host, "ref_rot": tensor})
+    assert list(out) == [*host, "ref_rot"]
+    for k, v in host.items():
+        assert out[k].dtype == torch.float32 and out[k].device.type == "cpu"
+        np.testing.assert_array_equal(out[k].numpy(), v.astype(np.float32))
+    assert out["ref_rot"] is tensor
+    assert "recon.staged_batches" not in profiler.snapshot()["counters"]
+
+
+# a batch value, and whether a CUDA engine stages it (it lives on the host)
+HOST_CASES = {
+    "numpy": (np.zeros((2, 3), np.float64), True),
+    "a list": ([[0.0, 1.0]], True),
+    "a cpu tensor": (torch.zeros(2, 3), True),
+    "a device tensor": (torch.empty(2, 3, device="meta"), False),
+}
+
+
+@pytest.mark.parametrize("case", HOST_CASES, ids=str)
+def test_on_host_picks_the_staged_values(case):
+    """The staged route takes the values that live in host memory; a tensor
+    already on a device is taken as it is."""
+    value, staged = HOST_CASES[case]
+    assert on_host(value) is staged
+
+
 # -- on the card -----------------------------------------------------------------
 
 
@@ -384,3 +424,117 @@ def test_a_step_that_syncs_the_host_stays_eager(tmp_path, rng, cuda_device):
         assert torch.isfinite(engine.train_step(batch, draws=d))
     assert _counters() == {"recon.eager_steps": 4, "recon.graph_captures": 0, "recon.graph_replays": 0}
     assert not engine._graph.capturable
+
+
+# the staged batch copy: ``touch.train``'s batch, and a product that keeps the
+# card busy for tens of milliseconds while the copies are queued beside it
+STAGED_ROWS, STAGED_POINTS, BUSY = 64, 4000, 8192
+
+
+def _busy(device):
+    a = torch.randn(BUSY, BUSY, device=device)
+    return lambda: a @ a
+
+
+@pytest.mark.cuda
+def test_staged_batches_arrive_whole_and_stay_the_callers(tmp_path, rng, cuda_device):
+    """6 staged batches, each call followed by a product on the current
+    stream, and a dropped batch between them whose blocks the allocator may
+    hand out again: every held batch equals its host source bit for bit
+    after one synchronize, although each source was overwritten as soon as
+    its call returned (the staging copies it) and later calls staged into
+    reused pinned blocks."""
+    engine, make, _ = _engine("touch", tmp_path, cuda_device)
+    busy = _busy(cuda_device)
+    hosts = [make(rng, STAGED_ROWS, STAGED_POINTS) for _ in range(12)]
+    want = [{k: v.copy() for k, v in host.items()} for host in hosts[::2]]
+    held = []
+    for host, dropped in zip(hosts[::2], hosts[1::2]):
+        held.append(engine.to_device(host))
+        for v in host.values():
+            v[...] = np.nan
+        busy()
+        engine.to_device(dropped)
+    torch.cuda.synchronize()
+    for got, src in zip(held, want):
+        assert list(got) == list(src)
+        for k, v in src.items():
+            assert got[k].dtype == torch.float32 and got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+
+
+@pytest.mark.cuda
+def test_staged_route_never_syncs_the_host(tmp_path, rng, cuda_device):
+    """After the first call (which makes the copy stream), staging a host
+    batch beside a busy card runs under torch's sync debug mode "error":
+    the copies are pinned and the consumer waits by an event, and the
+    in-flight bound blocks on an event, never on a stream or the device."""
+    engine, make, _ = _engine("touch", tmp_path, cuda_device)
+    busy = _busy(cuda_device)
+    hosts = [make(rng, STAGED_ROWS, STAGED_POINTS) for _ in range(5)]
+    engine.to_device(hosts[0])
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for host in hosts[1:]:
+            engine.to_device(host)
+            busy()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_staged_steps_match_steps_on_synchronous_copies(tmp_path, rng, cuda_device, deterministic):
+    """Two touch engines from the same weights run 8 steps (2 warm-up, a
+    capture, 5 replays) on the same host batches and draws: one fed by
+    ``to_device``'s staged route a batch at a time, losses left on the card
+    so the host runs ahead, the other by a synchronous ``torch.as_tensor``
+    copy.  The losses agree to 1e-6 relative, each parameter, running
+    statistic and Adam moment to 1e-6 of its norm, as a replay and its
+    eager twin do."""
+    staged, make, points = _engine("touch", tmp_path / "staged", cuda_device)
+    plain, _, _ = _engine("touch", tmp_path / "plain", cuda_device)
+    plain.model.load_state_dict(staged.model.state_dict())
+    b, n = staged.config.batch_size, 8
+    hosts = [make(rng, b, points) for _ in range(n)]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    draws = [draw_sample_noise(b, 3 * points, gen, cuda_device) for _ in range(n)]
+    profiler.reset()
+    got = [staged.train_step(staged.to_device(h), draws=d) for h, d in zip(hosts, draws)]
+    got = [float(x) for x in got]
+    assert _counters() == {"recon.eager_steps": 2, "recon.graph_captures": 1, "recon.graph_replays": 5}
+    assert profiler.snapshot()["counters"]["recon.staged_batches"] == n
+    want = [float(plain.train_step({k: torch.as_tensor(v, dtype=torch.float32, device=cuda_device)
+                                    for k, v in h.items()}, draws=d))
+            for h, d in zip(hosts, draws)]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    a, b = _state(staged), _state(plain)
+    far = {k: float(torch.linalg.vector_norm(a[k].double() - b[k].double())
+                    / max(float(torch.linalg.vector_norm(b[k].double())), 1e-30))
+           for k in b if b[k].is_floating_point()}
+    assert max(far.values()) <= 1e-6, sorted(far.items(), key=lambda kv: -kv[1])[:5]
+
+
+@pytest.mark.cuda
+def test_staged_route_counts_its_batches_and_waits(tmp_path, rng, cuda_device):
+    """``recon.staged_batches`` counts each call that staged a host batch,
+    not one whose values are all on the card already; with a product of
+    tens of milliseconds queued after each call, the host blocks on the
+    in-flight bound (``recon.staging_waits``) at least once, and never at
+    the first call, which has no step before it."""
+    engine, make, _ = _engine("touch", tmp_path, cuda_device)
+    busy = _busy(cuda_device)
+    calls = 5
+    hosts = [make(rng, STAGED_ROWS, STAGED_POINTS) for _ in range(calls)]
+    profiler.reset()
+    for host in hosts:
+        engine.to_device(host)
+        busy()
+    on_card = engine.to_device({k: torch.as_tensor(v, device=cuda_device)
+                                for k, v in make(rng, 2, 10).items()})
+    torch.cuda.synchronize()
+    counters = profiler.snapshot()["counters"]
+    assert all(v.device.type == "cuda" for v in on_card.values())
+    assert counters["recon.staged_batches"] == calls
+    assert 1 <= counters.get("recon.staging_waits", 0) <= calls - 1
