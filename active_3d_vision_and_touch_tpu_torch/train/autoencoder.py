@@ -12,6 +12,17 @@ clustered loss passes no gradient to that argument (it is the gt cloud in
 every other caller), so ``loss_nn="clustered"`` would train nothing: the
 engine refuses it, and :class:`core.config.AutoencoderConfig` defaults to
 ``"exact"``.
+
+Spans (``utils/profiler.py``, recorded under a profiler): ``auto.deform``,
+the frozen deformation's forward (in ``_loss``, so under
+``recon.forward_loss`` or ``recon.eval_step``, and in
+``collect_latents``); ``auto.encode``, the positional and mask features,
+the GCN encoder, the vertex max-pool and the MLP to the latent;
+``auto.decode``, the FoldingNet decoder; ``auto.chamfer``, the sampler on
+the frozen mesh and the Chamfer distance; the last three in ``_loss``.
+None runs in a step replayed from its CUDA graph (``train/base.py``).
+Counter ``auto.clouds``: the clouds decoded, B a loss (and each replay
+adds its capture's count).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from active_3d_vision_and_touch_tpu_torch.models.vision import init_modules_
 from active_3d_vision_and_touch_tpu_torch.ops.chamfer import mesh_chamfer_distance
 from active_3d_vision_and_touch_tpu_torch.train.base import ReconEngine
 from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
+from active_3d_vision_and_touch_tpu_torch.utils.profiler import count, span
 from active_3d_vision_and_touch_tpu_torch.utils.viz import write_png
 
 
@@ -96,21 +108,27 @@ class AutoencoderEngine(ReconEngine):
     @torch.no_grad()
     def deform(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The frozen deformation's (verts, mask) of ``batch``."""
-        return self.vision.forward(batch)
+        with span("auto.deform"):
+            return self.vision.forward(batch)
 
     def _loss(self, batch: dict, generator, draws) -> torch.Tensor:
         verts, mask = self.deform(batch)
-        pred_points, _ = self.model(verts, mask, self.adj)
-        cd = mesh_chamfer_distance(
-            verts,
-            self.faces,
-            pred_points,
-            generator,
-            num=self.config.number_points,
-            nn=self.config.loss_nn,
-            draws=draws,
-            shard=self.shard,
-        )
+        with span("auto.encode"):
+            latent = self.model.encode(verts, mask, self.adj)
+        count("auto.clouds", verts.shape[0])
+        with span("auto.decode"):
+            pred_points = self.model.decoder(latent)
+        with span("auto.chamfer"):
+            cd = mesh_chamfer_distance(
+                verts,
+                self.faces,
+                pred_points,
+                generator,
+                num=self.config.number_points,
+                nn=self.config.loss_nn,
+                draws=draws,
+                shard=self.shard,
+            )
         return self.config.loss_coeff * cd.mean()
 
     def encode(self, verts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,19 @@ from torch.profiler import ProfilerActivity, profile
 
 from active_3d_vision_and_touch_tpu_torch.active import ActiveTouchEnv
 from active_3d_vision_and_touch_tpu_torch.active.policies.ddqn import DDQNEngine
-from active_3d_vision_and_touch_tpu_torch.core.config import PolicyConfig, TouchConfig
+from active_3d_vision_and_touch_tpu_torch.core.config import (
+    AutoencoderConfig,
+    PolicyConfig,
+    TouchConfig,
+    VisionConfig,
+)
 from active_3d_vision_and_touch_tpu_torch.data import object_dirs, random_object
 from active_3d_vision_and_touch_tpu_torch.data.datasets import ActiveDataset, Loader
 from active_3d_vision_and_touch_tpu_torch.models import MeshAutoEncoder
 from active_3d_vision_and_touch_tpu_torch.ops import NN_EXACT
+from active_3d_vision_and_touch_tpu_torch.train.autoencoder import AutoencoderEngine
 from active_3d_vision_and_touch_tpu_torch.train.touch import TouchEngine
+from active_3d_vision_and_touch_tpu_torch.train.vision import VisionEngine
 from active_3d_vision_and_touch_tpu_torch.utils import profiler
 
 B, ACTIONS, POINTS = 2, 4, 128
@@ -311,4 +318,36 @@ def test_touch_engine_emits_encode_and_chamfer_and_counts_its_charts(tmp_path):
     assert profiler.snapshot()["counters"]["touch.charts"] == 3 * rows
     engine.predict(batch["sim_touch"][:2], batch["ref_pos"][:2], batch["ref_rot"][:2])
     assert profiler.snapshot()["counters"]["touch.charts"] == 3 * rows + 2
+    assert len(profiler.records()) == sum(map(len, got.values()))  # no span without a profiler
+
+
+def test_autoencoder_engine_emits_its_four_parts_and_counts_its_clouds(tmp_path):
+    """``auto.deform`` (the frozen forward), ``auto.encode``, ``auto.decode``
+    and ``auto.chamfer`` under ``recon.forward_loss`` in a train step and
+    ``recon.eval_step`` in evaluation; ``auto.clouds`` adds each loss's
+    rows, with a profiler or without."""
+    small = {k: SMALL[k] for k in ("use_img", "use_touch", "finger", "num_gcn_layers", "hidden_gcn_size",
+                                   "num_cnn_blocks", "layers_per_block", "number_points", "num_grasps",
+                                   "num_actions")}
+    rows, g = 3, np.random.default_rng(6)
+    common = dict(batch_size=rows, experiments_root=str(tmp_path), eval=True)
+    vision = VisionEngine(VisionConfig(**small, **common), device="cpu", log=False)
+    engine = AutoencoderEngine(AutoencoderConfig(**{**small, **AE}, **common), vision_engine=vision,
+                               vision_state=vision.model.state_dict(), device="cpu", log=False)
+    codes = g.integers(0, 3, size=(rows, small["num_grasps"], 4, 25, 1))
+    batch = engine.to_device({
+        "img": g.uniform(size=(rows, 64, 64, 3)),
+        "touch_charts": np.concatenate([g.normal(size=codes.shape[:-1] + (3,)) * 0.1, codes], axis=-1),
+        "gt_points": g.normal(size=(rows, 200, 3)) * 0.2,
+    })
+    gen = engine.step_generator(0)
+    with cpu_profile():
+        engine.train_step(batch, gen)
+        engine.eval_step(batch, gen)
+    got = by_name(profiler.records())
+    for name in ("auto.deform", "auto.encode", "auto.decode", "auto.chamfer"):
+        assert [r.parent for r in got[name]] == ["recon.forward_loss", "recon.eval_step"], name
+    assert profiler.snapshot()["counters"]["auto.clouds"] == 2 * rows
+    engine.train_step(batch, gen)
+    assert profiler.snapshot()["counters"]["auto.clouds"] == 3 * rows
     assert len(profiler.records()) == sum(map(len, got.values()))  # no span without a profiler
